@@ -1,0 +1,588 @@
+"""MPC (linear-quadratic optimal control) QP class, batched in PyTorch.
+
+Counterpart of `fbstab_tpu/models/mpc_qp.py` (reference mpc_data.{h,cc},
+riccati_linear_solver.{h,cc}, fbstab_mpc.{h,cc}). The QP is
+
+    min.  sum_i 1/2 [x(i); u(i)]' [Q(i) S(i)'; S(i) R(i)] [x(i); u(i)]
+                 + q(i)'x(i) + r(i)'u(i)
+    s.t.  x(i+1) = A(i) x(i) + B(i) u(i) + c(i),   x(0) = x0,
+          E(i) x(i) + L(i) u(i) + d(i) <= 0,
+
+with nz = (N+1)(nx+nu), nl = (N+1)nx, nv = (N+1)nc and the stage-major
+flat layout z = [x(0); u(0); ...; x(N); u(N)].
+
+Every tensor carries a leading batch axis B: stage matrices are
+(B, N+1, n, m), flat vectors (B, n). The Riccati recursion is a Python
+loop over stages, each step batched over B: the plain version of the
+CUDA Newton-step kernel (ops/riccati_cuda.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
+from fbstab_tpu_torch.core.problem import ProblemOps
+from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.ops.pfb import pfb_weights
+from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
+from fbstab_tpu_torch.options import Options
+from fbstab_tpu_torch.solver_out import ExitFlag, SolverOut
+
+_tri = solve_triangular_small
+
+
+class MpcQPData(NamedTuple):
+    """Batched stacked-array MPC data (reference: MpcData, mpc_data.h:43).
+    Stage counts: Q,R,S,q,r,E,L,d have N+1 entries; A,B,c have N."""
+
+    Q: torch.Tensor   # (B, N+1, nx, nx)
+    R: torch.Tensor   # (B, N+1, nu, nu)
+    S: torch.Tensor   # (B, N+1, nu, nx)
+    q: torch.Tensor   # (B, N+1, nx)
+    r: torch.Tensor   # (B, N+1, nu)
+    A: torch.Tensor   # (B, N, nx, nx)
+    B: torch.Tensor   # (B, N, nx, nu)
+    c: torch.Tensor   # (B, N, nx)
+    E: torch.Tensor   # (B, N+1, nc, nx)
+    L: torch.Tensor   # (B, N+1, nc, nu)
+    d: torch.Tensor   # (B, N+1, nc)
+    x0: torch.Tensor  # (B, nx)
+
+
+def mpc_dims(d: MpcQPData) -> tuple[int, int, int, int]:
+    """(N, nx, nu, nc) from the trailing array shapes."""
+    return d.A.shape[-3], d.A.shape[-1], d.B.shape[-1], d.E.shape[-2]
+
+
+def mpc_qp_data(Q, R, S, q, r, A, B, c, E, L, d, x0,
+                dtype=torch.float64, device=None) -> MpcQPData:
+    """Builds batched MpcQPData from array-likes with a common leading batch
+    axis, validating the per-instance shapes (mpc_data.cc:291-363)."""
+    def tensor(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dtype=dtype, device=device)
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    arrs = {k: tensor(v) for k, v in dict(
+        Q=Q, R=R, S=S, q=q, r=r, A=A, B=B, c=c, E=E, L=L, d=d,
+        x0=x0).items()}
+    data = MpcQPData(**arrs)
+    N, nx, nu, nc = mpc_dims(data)
+    if N <= 0:
+        raise ValueError("Horizon length must be at least 1.")
+    if data.x0.ndim != 2:
+        raise ValueError("mpc_qp_data: the arrays need a leading batch "
+                         "axis; use batch_data for one instance.")
+    Bq = data.x0.shape[0]
+    expect = dict(
+        Q=(N + 1, nx, nx), R=(N + 1, nu, nu), S=(N + 1, nu, nx),
+        q=(N + 1, nx), r=(N + 1, nu),
+        A=(N, nx, nx), B=(N, nx, nu), c=(N, nx),
+        E=(N + 1, nc, nx), L=(N + 1, nc, nu), d=(N + 1, nc), x0=(nx,))
+    for name, want in expect.items():
+        got = tuple(getattr(data, name).shape)
+        if got != (Bq,) + want:
+            raise ValueError(f"mpc_qp_data: {name} has shape {got}, "
+                             f"expected {(Bq,) + want}.")
+    return data
+
+
+def batch_data(data: MpcQPData, B: int) -> MpcQPData:
+    """Replicates a batch of one instance into B lanes (copies)."""
+    return MpcQPData(*(a.expand((B,) + a.shape[1:]).contiguous()
+                       for a in data))
+
+
+# ------------------------------------------------------------------
+# Matrix-free data operators (reference: mpc_data.cc:17-289), batched.
+# ------------------------------------------------------------------
+
+def _mv(M, x):
+    """Per-stage M @ x: M (B, S, n, m), x (B, S, m) -> (B, S, n)."""
+    return torch.matmul(M, x[..., None])[..., 0]
+
+
+def _mtv(M, x):
+    """Per-stage M' @ x: M (B, S, n, m), x (B, S, n) -> (B, S, m)."""
+    return torch.matmul(M.transpose(-1, -2), x[..., None])[..., 0]
+
+
+def _split_z(d: MpcQPData, z):
+    """(B, nz) -> stagewise ((B, N+1, nx), (B, N+1, nu))."""
+    N, nx, nu, _ = mpc_dims(d)
+    s = z.reshape(z.shape[0], N + 1, nx + nu)
+    return s[..., :nx], s[..., nx:]
+
+
+def _gemvH(d: MpcQPData, x):
+    """y(i) = [Q S'; S R] [x(i); u(i)] (mpc_data.cc:17-65)."""
+    vx, vu = _split_z(d, x)
+    yx = _mv(d.Q, vx) + _mtv(d.S, vu)
+    yu = _mv(d.S, vx) + _mv(d.R, vu)
+    return torch.cat([yx, yu], -1).reshape(x.shape[0], -1)
+
+
+def _gemvA(d: MpcQPData, x):
+    """y(i) = E(i) x(i) + L(i) u(i) (mpc_data.cc:67-105)."""
+    vx, vu = _split_z(d, x)
+    return (_mv(d.E, vx) + _mv(d.L, vu)).reshape(x.shape[0], -1)
+
+
+def _gemvG(d: MpcQPData, x):
+    """y(0) = -x(0); y(i) = A(i-1) x(i-1) + B(i-1) u(i-1) - x(i)
+    (mpc_data.cc:107-151)."""
+    vx, vu = _split_z(d, x)
+    tail = _mv(d.A, vx[:, :-1]) + _mv(d.B, vu[:, :-1]) - vx[:, 1:]
+    return torch.cat([-vx[:, :1], tail], 1).reshape(x.shape[0], -1)
+
+
+def _gemvGT(d: MpcQPData, l):
+    """x(i) = -l(i) + A(i)' l(i+1) [i<N]; u(i) = B(i)' l(i+1) [i<N]
+    (mpc_data.cc:153-199)."""
+    N, nx, nu, _ = mpc_dims(d)
+    Bq = l.shape[0]
+    v = l.reshape(Bq, N + 1, nx)
+    atv = _mtv(d.A, v[:, 1:])
+    btv = _mtv(d.B, v[:, 1:])
+    yx = -v + torch.cat([atv, torch.zeros_like(v[:, :1])], 1)
+    yu = torch.cat([btv, btv.new_zeros(Bq, 1, nu)], 1)
+    return torch.cat([yx, yu], -1).reshape(Bq, -1)
+
+
+def _gemvAT(d: MpcQPData, vflat):
+    """x(i) = E(i)' v(i); u(i) = L(i)' v(i) (mpc_data.cc:201-238)."""
+    N, nx, nu, nc = mpc_dims(d)
+    Bq = vflat.shape[0]
+    v = vflat.reshape(Bq, N + 1, nc)
+    return torch.cat([_mtv(d.E, v), _mtv(d.L, v)], -1).reshape(Bq, -1)
+
+
+def _f_vec(d: MpcQPData):
+    """f = [(q(i); r(i))]_i (mpc_data.cc:240-259)."""
+    return torch.cat([d.q, d.r], -1).reshape(d.q.shape[0], -1)
+
+
+def _h_vec(d: MpcQPData):
+    """h = -[x0; c(0); ...; c(N-1)] (mpc_data.cc:261-274)."""
+    return -torch.cat([d.x0[:, None, :], d.c], 1).reshape(d.x0.shape[0], -1)
+
+
+def _b_vec(d: MpcQPData):
+    """b = -[d(i)]_i (mpc_data.cc:276-289)."""
+    return -d.d.reshape(d.d.shape[0], -1)
+
+
+def _forcing_norm(d: MpcQPData):
+    """Per-lane ||(f, h, b)||_2 (mpc_data.h:100-108)."""
+    sq = lambda a: (a * a).reshape(a.shape[0], -1).sum(-1)
+    return torch.sqrt(sq(d.q) + sq(d.r) + sq(d.d) + sq(d.x0) + sq(d.c))
+
+
+# ------------------------------------------------------------------
+# Riccati-recursion Newton step (riccati_linear_solver.cc:77-344): the
+# plain version of the CUDA kernel K1.
+# ------------------------------------------------------------------
+
+class RiccatiFactorization(NamedTuple):
+    """Per-stage factors (riccati_linear_solver.h:109-141), batched."""
+
+    L: torch.Tensor      # (B, N+1, nx, nx) chol of the Riccati matrix Pi
+    M: torch.Tensor      # (B, N+1, nx, nx) chol(Qhat + inv(L L'))
+    SM: torch.Tensor     # (B, N+1, nu, nx) Shat inv(M)'
+    SG: torch.Tensor     # (B, N+1, nu, nu) chol(Rhat - SM SM')
+    AM: torch.Tensor     # (B, N, nx, nx)   A inv(M)'
+    P: torch.Tensor      # (B, N, nx, nu)   (AM SM' - B) inv(SG)'
+    gamma: torch.Tensor  # (B, nv)
+    mus: torch.Tensor    # (B, nv)
+
+
+def _lane_sigma(sigma, like):
+    """sigma as a python scalar or a (B, 1, ...) tensor broadcasting
+    against `like`'s trailing dims."""
+    if isinstance(sigma, torch.Tensor) and sigma.ndim == 1:
+        return sigma.reshape((-1,) + (1,) * (like.ndim - 1))
+    return sigma
+
+
+def _stage_hessians(d: MpcQPData, Gam, sigma):
+    """Qhat = Q + sigma I + E'GE, Rhat = R + sigma I + L'GL,
+    Shat = S + L'GE (riccati_linear_solver.cc:101-123)."""
+    N, nx, nu, nc = mpc_dims(d)
+    dtype, dev = d.Q.dtype, d.Q.device
+    Ix = torch.eye(nx, dtype=dtype, device=dev)
+    Iu = torch.eye(nu, dtype=dtype, device=dev)
+    Gs = Gam.reshape(Gam.shape[0], N + 1, nc)
+    GE = Gs[..., None] * d.E
+    GL = Gs[..., None] * d.L
+    sig = _lane_sigma(sigma, d.Q)
+    Et, Lt = d.E.transpose(-1, -2), d.L.transpose(-1, -2)
+    Qh = d.Q + sig * Ix + torch.matmul(Et, GE)
+    Rh = d.R + sig * Iu + torch.matmul(Lt, GL)
+    Sh = d.S + torch.matmul(Lt, GE)
+    return Qh, Rh, Sh
+
+
+def _riccati_factor_yv(d: MpcQPData, y, v, vbar, sigma, alpha
+                       ) -> RiccatiFactorization:
+    """Weights, stage Hessians and the forward Riccati matrix recursion
+    (riccati_linear_solver.cc:77-210). sigma: scalar or per-lane (B,)."""
+    N, nx, nu, nc = mpc_dims(d)
+    Bq = v.shape[0]
+    dtype, dev = d.Q.dtype, d.Q.device
+    Ix = torch.eye(nx, dtype=dtype, device=dev).expand(Bq, nx, nx)
+
+    gamma, mus, Gam = pfb_weights(y, v, vbar, _lane_sigma(sigma, v), alpha)
+    Qh, Rh, Sh = _stage_hessians(d, Gam, sigma)
+    sig3 = _lane_sigma(sigma, Ix)
+
+    def cho_inverse(Lf):
+        t = _tri(Lf, Ix, lower=True)
+        return _tri(Lf.transpose(-1, -2), t, lower=False)
+
+    def stage_factor(Lf, i):
+        # M = chol(Qhat + inv(L L')); SM = Shat inv(M)';
+        # SG = chol(Rhat - SM SM')  (cc:145-151, 160-168).
+        M = cholesky(Qh[:, i] + cho_inverse(Lf))
+        SM = _tri(M, Sh[:, i].transpose(-1, -2), lower=True
+                  ).transpose(-1, -2)
+        SG = cholesky(Rh[:, i] - SM @ SM.transpose(-1, -2))
+        return M, SM, SG
+
+    # Base case L(0) = chol(sigma I) = sqrt(sigma) I (cc:127).
+    Lf = torch.sqrt(torch.as_tensor(sig3, dtype=dtype, device=dev)) * Ix
+    Ls, Ms, SMs, SGs, AMs, Ps = [], [], [], [], [], []
+    for i in range(N):
+        M, SM, SG = stage_factor(Lf, i)
+        # AM = A inv(M)' (cc:153-159); P = (AM SM' - B) inv(SG)'
+        # (cc:170-179); L(i+1) = chol(sigma I + P P' + AM AM') (cc:181-188).
+        AM = _tri(M, d.A[:, i].transpose(-1, -2), lower=True
+                  ).transpose(-1, -2)
+        P = _tri(SG, (AM @ SM.transpose(-1, -2) - d.B[:, i]
+                      ).transpose(-1, -2), lower=True).transpose(-1, -2)
+        L_next = cholesky(sig3 * Ix + P @ P.transpose(-1, -2)
+                          + AM @ AM.transpose(-1, -2))
+        Ls.append(Lf)
+        Ms.append(M)
+        SMs.append(SM)
+        SGs.append(SG)
+        AMs.append(AM)
+        Ps.append(P)
+        Lf = L_next
+    # Terminal stage i = N (cc:191-209).
+    M, SM, SG = stage_factor(Lf, N)
+    Ls.append(Lf)
+    Ms.append(M)
+    SMs.append(SM)
+    SGs.append(SG)
+    st = lambda xs: torch.stack(xs, 1)
+    return RiccatiFactorization(
+        L=st(Ls), M=st(Ms), SM=st(SMs), SG=st(SGs), AM=st(AMs), P=st(Ps),
+        gamma=gamma, mus=mus)
+
+
+def _riccati_factor_ok(fact: RiccatiFactorization):
+    """Per-lane: every stage Cholesky succeeded (no NaN on the factor
+    diagonals; riccati_linear_solver.cc:131-136)."""
+    diag_ok = lambda F: torch.isfinite(
+        torch.diagonal(F, dim1=-2, dim2=-1)).reshape(F.shape[0], -1).all(-1)
+    return diag_ok(fact.M) & diag_ok(fact.SG) & diag_ok(fact.L)
+
+
+def _riccati_solve(d: MpcQPData, fact: RiccatiFactorization, rz, rl, rv
+                   ) -> Variable:
+    """Forward/backward vector recursions + dual recovery
+    (riccati_linear_solver.cc:212-344)."""
+    N, nx, nu, nc = mpc_dims(d)
+    Bq = rz.shape[0]
+
+    def cho_solve(Lf, b):
+        return _tri(Lf.transpose(-1, -2), _tri(Lf, b, lower=True),
+                    lower=False)
+
+    mv = lambda M, x: (M @ x[..., None])[..., 0]
+    mtv = lambda M, x: (M.transpose(-1, -2) @ x[..., None])[..., 0]
+
+    # r1 = rz - A'(rv ./ mus), r2 = -rl (cc:230-236).
+    r1 = rz - _gemvAT(d, rv / fact.mus)
+    r1s = r1.reshape(Bq, N + 1, nx + nu)
+    rx, ru = r1s[..., :nx], r1s[..., nx:]
+    r2 = (-rl).reshape(Bq, N + 1, nx)
+    F = fact
+
+    # Forward recursion for theta / h (cc:239-262).
+    th = [r2[:, 0]]
+    h = [cho_solve(F.L[:, 0], th[0]) - rx[:, 0]]
+    for i in range(N):
+        tx = _tri(F.M[:, i], h[i], lower=True)
+        tu = _tri(F.SG[:, i], mv(F.SM[:, i], tx) + ru[:, i], lower=True)
+        th_n = mv(F.P[:, i], tu) + mv(F.AM[:, i], tx) + r2[:, i + 1]
+        th.append(th_n)
+        h.append(cho_solve(F.L[:, i + 1], th_n) - rx[:, i + 1])
+
+    # Backward recursion base case, stage N (cc:266-293).
+    txN = _tri(F.M[:, N], h[N], lower=True)
+    uN = cho_solve(F.SG[:, N], mv(F.SM[:, N], txN) + ru[:, N])
+    xN = -_tri(F.M[:, N].transpose(-1, -2), txN + mtv(F.SM[:, N], uN),
+               lower=False)
+    lN = -cho_solve(F.L[:, N], xN + th[N])
+
+    # Main backward loop i = N-1..0 carrying l(i+1) (cc:297-327).
+    xs, us, ls = [xN], [uN], [lN]
+    l_next = lN
+    for i in range(N - 1, -1, -1):
+        tx = _tri(F.M[:, i], h[i], lower=True)
+        ui = _tri(F.SG[:, i], mv(F.SM[:, i], tx) + ru[:, i], lower=True)
+        ui = _tri(F.SG[:, i].transpose(-1, -2), ui + mtv(F.P[:, i], l_next),
+                  lower=False)
+        xi = -_tri(F.M[:, i].transpose(-1, -2),
+                   tx + mtv(F.SM[:, i], ui) + mtv(F.AM[:, i], l_next),
+                   lower=False)
+        li = -cho_solve(F.L[:, i], th[i] + xi)
+        xs.append(xi)
+        us.append(ui)
+        ls.append(li)
+        l_next = li
+    xs, us, ls = xs[::-1], us[::-1], ls[::-1]
+
+    dz = torch.cat([torch.stack(xs, 1), torch.stack(us, 1)], -1
+                   ).reshape(Bq, -1)
+    dl = torch.stack(ls, 1).reshape(Bq, -1)
+
+    # Dual recovery (cc:329-342): dv = (rv + gamma A dz) ./ mus,
+    # dy = b - A dz.
+    Adz = _gemvA(d, dz)
+    dv = (rv + fact.gamma * Adz) / fact.mus
+    dy = _b_vec(d) - Adz
+    return Variable(z=dz, l=dl, v=dv, y=dy)
+
+
+def exact_f32_matmul(t: torch.Tensor) -> None:
+    """Plain-path float32 products on the card run in full float32: TF32
+    keeps ~3 decimal digits and would break parity with the kernels."""
+    if t.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha):
+    """Plain batched Newton step: returns (dz, dl, dv, dy, ok) with ok the
+    per-lane factor check (NaN-free factor diagonals)."""
+    exact_f32_matmul(v)
+    fact = _riccati_factor_yv(d, y, v, vbar, sigma, alpha)
+    ok = _riccati_factor_ok(fact)
+    dx = _riccati_solve(d, fact, rz, rl, rv)
+    return dx.z, dx.l, dx.v, dx.y, ok
+
+
+# ------------------------------------------------------------------
+# Kernel dispatch. Every float32 batch on the card takes K1 as its Newton
+# step. The fused solver K2 takes float32 batches on the card within
+# SOLVE_DIMS_CAP. The kernels size everything at run time (one thread per
+# instance, scratch in device memory), so the cap is not a resource limit:
+# it is the envelope of the shapes K2 was held against its plain version
+# on an H100, the headline (N=30 nx=8 nu=3 nc=6) and the three audited
+# plants (up to N=40 nx=6 nc=12). Larger stage dimensions are the JAX
+# package's tier-2 shapes (the per-subproblem kernel, not ported yet):
+# they run the lockstep solver with K1 as the Newton step.
+# ------------------------------------------------------------------
+
+SOLVE_DIMS_CAP = dict(N=40, nx=8, nu=3, nc=12)
+
+
+def _cuda_f32(t: torch.Tensor) -> bool:
+    return t.is_cuda and t.dtype == torch.float32
+
+
+def mpc_newton_step(d, v, y, vbar, rz, rl, rv, sigma, alpha):
+    """The Newton-step dispatch (`_make_fused_step` in the JAX package):
+    the CUDA kernel K1 for float32 batches on the card, with ok = finite
+    (dz, dl); the plain recursion everywhere else, with ok = finite factor
+    diagonals. Returns (dz, dl, dv, dy, ok)."""
+    if _cuda_f32(v):
+        from fbstab_tpu_torch.ops.riccati_cuda import (
+            riccati_newton_step_batched)
+        dz, dl, dv, dy = riccati_newton_step_batched(
+            d, v, y, vbar, rz, rl, rv, sigma, alpha)
+        ok = torch.isfinite(dz).all(1) & torch.isfinite(dl).all(1)
+        return dz, dl, dv, dy, ok
+    return _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha)
+
+
+def _newton_step_op(step):
+    def newton_step(d, x: Variable, xbar: Variable, sigma, alpha, rz, rl,
+                    rv):
+        dz, dl, dv, dy, ok = step(d, x.v, x.y, xbar.v, rz, rl, rv, sigma,
+                                  alpha)
+        return Variable(z=dz, l=dl, v=dv, y=dy), ok
+    return newton_step
+
+
+MPC_OPS = ProblemOps(
+    gemvH=_gemvH, gemvA=_gemvA, gemvG=_gemvG, gemvAT=_gemvAT, gemvGT=_gemvGT,
+    f_vec=_f_vec, h_vec=_h_vec, b_vec=_b_vec, forcing_norm=_forcing_norm,
+    newton_step=_newton_step_op(mpc_newton_step),
+)
+# The MPC class with the plain Newton step on every device: the plain
+# version of K2 runs on it, so that nothing of it is a kernel.
+MPC_PLAIN_OPS = MPC_OPS._replace(newton_step=_newton_step_op(_fused_step_impl))
+
+
+# ------------------------------------------------------------------
+# Batched entry points.
+# ------------------------------------------------------------------
+
+def beyond_envelope_noeq(data: MpcQPData, dtype, backend=None) -> bool:
+    """The JAX package runs TPU float32 batches beyond its kernel envelope
+    unequilibrated, a policy measured on the TPU only; off the TPU it
+    never fires. The port runs on the CPU and on CUDA, so it never
+    fires here either."""
+    return False
+
+
+def gate_mpc_options(data: MpcQPData, dtype, options: Options) -> Options:
+    """Applies the beyond-envelope no-equilibration policy (a no-op off
+    the TPU, see beyond_envelope_noeq) to validated options."""
+    o = options.validated()
+    if o.equilibrate and beyond_envelope_noeq(data, dtype):
+        o = dataclasses.replace(o, equilibrate=False)
+    return o
+
+
+def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options):
+    """Tier 1: the fused CUDA solver (K2) for float32 batches on the card
+    within SOLVE_DIMS_CAP. Tier 3: the batched lockstep solver, whose
+    Newton step is K1 on the card in float32 and the plain recursion
+    elsewhere. (The JAX package's tier 2, the per-subproblem kernel for
+    large stage dimensions, is not ported yet; those shapes take
+    tier 3.)"""
+    N, nx, nu, nc = mpc_dims(data)
+    cap = SOLVE_DIMS_CAP
+    if (_cuda_f32(z0) and N <= cap["N"] and nx <= cap["nx"]
+            and nu <= cap["nu"] and nc <= cap["nc"]):
+        from fbstab_tpu_torch.ops.mpc_solve_cuda import (
+            fbstab_mpc_solve_fused)
+        return fbstab_mpc_solve_fused(data, z0, l0, v0, options)
+    exact_f32_matmul(z0)
+    return fbstab_solve_batch(MPC_OPS, data, z0, l0, v0, options)
+
+
+def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
+                       options: Options = Options(), scaling=None):
+    """Batched MPC solve; every data array and guess has a leading batch
+    axis. Returns (Variable or VariableDF, CoreOut).
+
+    float32 product path (`Options.single_precision()`): Ruiz
+    equilibration (models/scaling.py), the solve, a re-solve of the lanes
+    that exit LINEAR_SOLVER_FAILED with a 4x sigma, then double-float
+    refinement to `refine_target` (models/refine.py), whose result is a
+    VariableDF pair and whose `residual` is the double-float-verified
+    value in original units.
+
+    scaling: optional precomputed batched MpcScaling for `data`."""
+    opts = options.validated()
+    from fbstab_tpu_torch.models.refine import (
+        refine_engaged, refine_solution_mpc)
+    from fbstab_tpu_torch.models.scaling import (
+        merge_failed_retry, retry_options, ruiz_mpc_scaling,
+        scaling_engaged, solve_scaled_mpc)
+
+    if scaling is None:
+        opts = gate_mpc_options(data, z0.dtype, opts)
+
+    scal = scaling
+    if scal is None and scaling_engaged(opts, z0.dtype):
+        scal = ruiz_mpc_scaling(data)
+
+    will_refine = refine_engaged(opts, z0.dtype)
+
+    def scaled_solve(o, z, l, v):
+        return solve_scaled_mpc(
+            lambda dd, zz, ll, vv: _solve_mpc_qp_batch_raw(
+                dd, zz, ll, vv, o), data, z, l, v, o, scal=scal,
+            skip_residual_rewrite=will_refine)
+
+    x, core = scaled_solve(opts, z0, l0, v0)
+    if opts.retry_failed and z0.dtype == torch.float32:
+        fail = core.eflag == int(ExitFlag.LINEAR_SOLVER_FAILED)
+        if bool(fail.any()):
+            # Failed lanes restart from the caller's guess; the others
+            # re-enter at their solution and exit immediately.
+            m = fail[:, None]
+            x2, core2 = scaled_solve(
+                retry_options(opts), torch.where(m, z0, x.z),
+                torch.where(m, l0, x.l), torch.where(m, v0, x.v))
+            x, core = merge_failed_retry(x, core, x2, core2)
+    if will_refine:
+        return refine_solution_mpc(data, x, core, opts, scal=scal)
+    return x, core
+
+
+# ------------------------------------------------------------------
+# Facade (reference: FBstabMpc, fbstab_mpc.h:56).
+# ------------------------------------------------------------------
+
+class FBstabMpc:
+    """Allocate-once/solve-many facade for one MPC QP at a time; it runs a
+    batch of one through the batched functions above."""
+
+    def __init__(self, N: int, nx: int, nu: int, nc: int,
+                 dtype=torch.float64, device=None):
+        if N <= 0 or nx <= 0 or nu <= 0 or nc <= 0:
+            raise ValueError("FBstabMpc requires N, nx, nu, nc > 0.")
+        self.N, self.nx, self.nu, self.nc = N, nx, nu, nc
+        self.nz = (N + 1) * (nx + nu)
+        self.nl = (N + 1) * nx
+        self.nv = (N + 1) * nc
+        self.dtype = dtype
+        self.device = torch.device(device) if device is not None else None
+        self._options = Options.default()
+
+    def update_options(self, options: Options) -> None:
+        self._options = options.validated()
+
+    @property
+    def options(self) -> Options:
+        return self._options
+
+    def solve(self, data: MpcQPData, x0: Optional[Variable] = None
+              ) -> tuple[Variable, SolverOut]:
+        """Solves one QP given as batched data with B = 1, from the
+        warmstart x0 (the origin if omitted). Returns lane 0's result."""
+        N, nx, nu, nc = self.N, self.nx, self.nu, self.nc
+        if mpc_dims(data) != (N, nx, nu, nc) or data.x0.shape[0] != 1:
+            raise ValueError(
+                f"FBstabMpc.solve: expected one instance of dims "
+                f"{(N, nx, nu, nc)}, got dims {mpc_dims(data)} and batch "
+                f"{data.x0.shape[0]}.")
+        dev = data.Q.device
+        zeros = lambda n: torch.zeros(1, n, dtype=self.dtype, device=dev)
+        if x0 is None:
+            x0 = Variable(z=zeros(self.nz), l=zeros(self.nl),
+                          v=zeros(self.nv), y=zeros(self.nv))
+        t0 = time.perf_counter()
+        x, core = solve_mpc_qp_batch(data, x0.z, x0.l, x0.v, self._options)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+        lane = lambda a: a[0] if isinstance(a, torch.Tensor) else a
+        out = SolverOut(
+            eflag=lane(core.eflag), residual=lane(core.residual),
+            newton_iters=lane(core.newton_iters),
+            prox_iters=lane(core.prox_iters),
+            solve_time=torch.tensor(elapsed),
+            initial_residual=lane(core.initial_residual),
+            raw_residual=lane(core.raw_residual),
+            refine_steps=lane(core.refine_steps))
+        return x, out
+
+
+__all__ = [
+    "CoreOut", "FBstabMpc", "MPC_OPS", "MpcQPData", "batch_data",
+    "mpc_dims", "mpc_qp_data", "solve_mpc_qp_batch",
+]

@@ -1,0 +1,106 @@
+"""Builds the CUDA kernels at first use and loads them with ctypes.
+
+`load_library()` compiles every `csrc/*.cu` with nvcc into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), under `fbstab_tpu_torch/_build/`, keyed by a hash of the sources
+and flags; a later call with the same sources reuses it. Nothing is built
+or looked up until a CUDA tensor reaches a kernel, and a failed build
+raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class SolveOpts(ctypes.Structure):
+    """Mirror of `struct SolveOpts` in csrc/mpc_solve.cuh (field order and
+    types must match)."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "sigma", "alpha", "om_alpha", "beta", "eta", "delta",
+        "abs_tol", "rel_tol", "stall_tol", "infeas_tol",
+        "inner_tol_max", "inner_tol_min", "inner_stall_tol", "om_stall")] + [
+        (n, ctypes.c_int) for n in (
+            "max_newton", "max_prox", "max_inner", "max_ls",
+            "check_feasibility", "nonmonotone")]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives."""
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libfbstab_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+    os.replace(tmp, out)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fb_riccati_ws_floats.argtypes = [I, I, I, I]
+    lib.fb_riccati_ws_floats.restype = ctypes.c_longlong
+    lib.fb_riccati_step.argtypes = [I, I, I, I, I, F, F] + [P] * 17 + [P]
+    lib.fb_riccati_step.restype = I
+    lib.fb_solve_ws_floats.argtypes = [I, I, I, I]
+    lib.fb_solve_ws_floats.restype = ctypes.c_longlong
+    lib.fb_mpc_solve.argtypes = [I, I, I, I, I, SolveOpts] + [P] * 25 + [P]
+    lib.fb_mpc_solve.restype = I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Builds (once per source hash) and loads the kernel library."""
+    path = library_path()
+    if not path.exists():
+        _compile(path)
+    return _bind(ctypes.CDLL(str(path)))
+
+
+def check(err: int, what: str) -> None:
+    """Raises when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -1,0 +1,178 @@
+"""PyTorch port: the CUDA kernels' device code replayed on the CPU in
+float64. The headers of fbstab_tpu_torch/csrc are plain C++ behind FB_DEV,
+so tests/torch_host_replay.cpp compiles them with the host compiler, with
+double in place of float, behind the CUDA library's C interface. In float64
+the replayed fused solver (K2) must take exactly the plain solver's
+decisions on every lane: the same exit flag, Newton and proximal iteration
+counts, iterates within 1e-9. The replayed Newton step (K1) must match the
+plain step within 1e-10. This pins the per-lane semantics of the stall
+guard, the linesearch and the exit checks, which float32 knife edges hide
+on the card (chip_smoke.py bounds the float32 Newton counts there)."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import (  # noqa: E402
+    dims, headline_arrays, mixed_batch, plant_arrays, torch_data)
+
+from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
+from fbstab_tpu_torch.models.scaling import (  # noqa: E402
+    apply_mpc_scaling, ruiz_mpc_scaling)
+from fbstab_tpu_torch.ops import _build  # noqa: E402
+from fbstab_tpu_torch.ops.mpc_solve_cuda import (  # noqa: E402
+    fbstab_mpc_solve_plain, solve_opts)
+from fbstab_tpu_torch.ops.riccati_cuda import to_batch_last  # noqa: E402
+from fbstab_tpu_torch.options import Options  # noqa: E402
+
+HARNESS = Path(__file__).resolve().parent / "torch_host_replay.cpp"
+ALPHA = 0.95
+
+
+class SolveOpts64(ctypes.Structure):
+    """`_build.SolveOpts` with double in place of float."""
+    _fields_ = [(n, ctypes.c_double if t is ctypes.c_float else t)
+                for n, t in _build.SolveOpts._fields_]
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build the replay")
+    out = tmp_path_factory.mktemp("replay") / "libfbstab_replay64.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(_build.SRC_DIR), "-o", str(out),
+                    str(HARNESS)], check=True, capture_output=True,
+                   timeout=120)
+    lib = ctypes.CDLL(str(out))
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for ws in (lib.fb_riccati_ws_floats, lib.fb_solve_ws_floats):
+        ws.argtypes = [I] * 4
+        ws.restype = ctypes.c_longlong
+    lib.fb_riccati_step.argtypes = [I] * 5 + [D, D] + [P] * 17
+    lib.fb_mpc_solve.argtypes = [I] * 5 + [SolveOpts64] + [P] * 25
+    return lib
+
+
+def _replay_solve(lib, data, options):
+    """The replayed K2 from zero initial guesses: (z, v, eflag, newton,
+    prox, res), batch-first."""
+    N, nx, nu, nc = tm.mpc_dims(data)
+    B, N1 = data.x0.shape[0], N + 1
+    f64 = dict(dtype=torch.float64)
+    z0 = torch.zeros(B, N1 * (nx + nu), **f64)
+    l0 = torch.zeros(B, N1 * nx, **f64)
+    v0 = torch.zeros(B, N1 * nc, **f64)
+    ins = [to_batch_last(a) for a in (
+        data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
+        data.A, data.B, data.E, data.L, z0, l0, v0)]
+    z, l0b, v, y = (torch.empty(a.shape[1], B, **f64)
+                    for a in (z0, l0, v0, v0))
+    eflag, newton, prox = (torch.empty(B, dtype=torch.int32)
+                           for _ in range(3))
+    res, res0 = torch.empty(B, **f64), torch.empty(B, **f64)
+    ws = torch.empty(lib.fb_solve_ws_floats(N, nx, nu, nc), B, **f64)
+    outs = (z, l0b, v, y, eflag, res, newton, prox, res0, ws)
+    assert lib.fb_mpc_solve(N, nx, nu, nc, B,
+                            solve_opts(options, SolveOpts64),
+                            *[a.data_ptr() for a in ins],
+                            *[a.data_ptr() for a in outs]) == 0
+    return z.t(), v.t(), eflag, newton, prox, res
+
+
+def _headline_equilibrated():
+    data = torch_data(headline_arrays(64), torch.float64)
+    return apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+
+
+SOLVE_CASES = {
+    "mixed_abs_tol_1e-8": (lambda: torch_data(mixed_batch(), torch.float64),
+                           lambda: Options(abs_tol=1e-8)),
+    "mixed_single_precision": (
+        lambda: torch_data(mixed_batch(), torch.float64),
+        Options.single_precision),
+    "servo_certificate": (
+        lambda: torch_data(plant_arrays(
+            "servo_motor", 10, 2,
+            x0s=[[0.0, 0.0, 0.0, 0.0], [0.1, 0.0, 0.0, 0.0]]),
+            torch.float64),
+        lambda: Options(abs_tol=1e-8)),
+    "spacecraft": (
+        lambda: torch_data(plant_arrays("spacecraft_relative_motion", 12, 2),
+                           torch.float64),
+        lambda: Options(abs_tol=1e-8)),
+    "headline_equilibrated": (_headline_equilibrated,
+                              Options.single_precision),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVE_CASES))
+def test_replayed_solver_takes_the_plain_solvers_decisions(lib, case):
+    make_data, make_options = SOLVE_CASES[case]
+    data, opts = make_data(), make_options()
+    z, v, eflag, newton, prox, res = _replay_solve(lib, data, opts)
+    B = data.x0.shape[0]
+    N, nx, nu, nc = tm.mpc_dims(data)
+    zeros = lambda n: torch.zeros(B, n, dtype=torch.float64)
+    xp, cp = fbstab_mpc_solve_plain(data, zeros((N + 1) * (nx + nu)),
+                                    zeros((N + 1) * nx), zeros((N + 1) * nc),
+                                    opts)
+    for name, got, want in (("eflag", eflag, cp.eflag),
+                            ("newton_iters", newton, cp.newton_iters),
+                            ("prox_iters", prox, cp.prox_iters)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                      err_msg=name)
+    zp = xp.z.numpy()
+    np.testing.assert_allclose(z.numpy(), zp, rtol=1e-9,
+                               atol=1e-9 * (1 + np.abs(zp).max()))
+    vp = xp.v.numpy()
+    np.testing.assert_allclose(v.numpy(), vp, rtol=1e-9,
+                               atol=1e-9 * (1 + np.abs(vp).max()))
+    np.testing.assert_allclose(
+        res.numpy(), cp.residual.numpy(), rtol=0,
+        atol=1e-9 * (1 + cp.initial_residual.max().item()))
+
+
+@pytest.mark.parametrize("plant,N,B", [
+    ("double_integrator", 8, 4),
+    ("servo_motor", 5, 2),
+    ("copolymerization_reactor", 6, 2),
+])
+def test_replayed_newton_step_matches_plain_step(lib, plant, N, B):
+    """Per-lane sigma, random iterates around the complementarity corner."""
+    arrays = plant_arrays(plant, N, B)
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    rng = np.random.default_rng(N)
+    v = np.abs(rng.standard_normal((B, nv)))
+    y = rng.standard_normal((B, nv))
+    vbar = v + 0.1 * rng.standard_normal((B, nv))
+    rz, rl, rv = (rng.standard_normal((B, n)) for n in (nz, nl, nv))
+    sigma = 10.0 ** rng.uniform(-4, -1, B)
+    td = torch_data(arrays, torch.float64)
+    v, y, vbar, rz, rl, rv, sigma = (torch.tensor(a) for a in
+                                     (v, y, vbar, rz, rl, rv, sigma))
+    ins = [to_batch_last(a) for a in (td.Q, td.R, td.S, td.A, td.B, td.E,
+                                      td.L, v, y, vbar, rz, rl, rv)]
+    dz = torch.empty(nz, B, dtype=torch.float64)
+    dl = torch.empty(nl, B, dtype=torch.float64)
+    ws = torch.empty(lib.fb_riccati_ws_floats(N, nx, nu, nc), B,
+                     dtype=torch.float64)
+    assert lib.fb_riccati_step(N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA,
+                               sigma.data_ptr(),
+                               *[a.data_ptr() for a in ins], dz.data_ptr(),
+                               dl.data_ptr(), ws.data_ptr()) == 0
+    pz, pl, *_ = tm._fused_step_impl(td, v, y, vbar, rz, rl, rv,
+                                     sigma, ALPHA)
+    for name, got, want in (("dz", dz.t(), pz), ("dl", dl.t(), pl)):
+        w = want.numpy()
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-10,
+                                   atol=1e-10 * (1 + np.abs(w).max()),
+                                   err_msg=name)

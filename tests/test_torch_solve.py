@@ -1,0 +1,145 @@
+"""PyTorch port: the batched lockstep solver (the plain version of the
+fused kernel K2) against `fbstab_tpu.solve_mpc_qp_batch` in float64 on the
+mixed feasible/infeasible batch of tests/test_fused_solve.py: the same exit
+flag, Newton and proximal iteration counts per lane, iterates within 1e-9.
+The CUDA kernel itself is compared with the plain version on the card
+(marked `cuda`); JAX is imported inside the parity tests only, so the
+`cuda` test also runs where JAX is not installed (README)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import (  # noqa: E402
+    dims, headline_arrays, jax_data, mixed_batch, plant_arrays, require_cuda,
+    torch_data, torch_options)
+
+from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
+from fbstab_tpu_torch.models.scaling import (  # noqa: E402
+    apply_mpc_scaling, ruiz_mpc_scaling)
+from fbstab_tpu_torch.ops import mpc_solve_cuda  # noqa: E402
+from fbstab_tpu_torch.options import Options  # noqa: E402
+
+
+def _jax_options(profile):
+    from fbstab_tpu.options import Options as JaxOptions
+    if profile == "single_precision":
+        return JaxOptions.single_precision()
+    return JaxOptions(abs_tol=1e-8)
+
+
+def _solve_both(arrays, jopts):
+    import jax.numpy as jnp
+    from fbstab_tpu.models.mpc_qp import solve_mpc_qp_batch as jax_solve
+
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    B = arrays["x0"].shape[0]
+    xr, cr = jax_solve(jax_data(arrays, jnp.float64), jnp.zeros((B, nz)),
+                       jnp.zeros((B, nl)), jnp.zeros((B, nv)), jopts)
+    z = lambda n: torch.zeros(B, n, dtype=torch.float64)
+    xt, ct = tm.solve_mpc_qp_batch(torch_data(arrays, torch.float64), z(nz),
+                                   z(nl), z(nv), torch_options(jopts))
+    return xr, cr, xt, ct
+
+
+@pytest.mark.parametrize("profile", ["abs_tol_1e-8", "single_precision"])
+def test_plain_solver_matches_reference_per_lane(profile):
+    xr, cr, xt, ct = _solve_both(mixed_batch(), _jax_options(profile))
+    assert {0, 3} <= set(np.asarray(cr.eflag).tolist())   # mixed batch
+    for f in ("eflag", "newton_iters", "prox_iters"):
+        np.testing.assert_array_equal(getattr(ct, f).numpy(),
+                                      np.asarray(getattr(cr, f)), err_msg=f)
+    scale = 1.0 + np.abs(np.asarray(xr.v))
+    np.testing.assert_allclose(xt.v.numpy() / scale,
+                               np.asarray(xr.v) / scale, atol=1e-9)
+    np.testing.assert_allclose(xt.z.numpy(), np.asarray(xr.z), atol=1e-9)
+    np.testing.assert_allclose(ct.residual.numpy(), np.asarray(cr.residual),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(ct.initial_residual.numpy(),
+                               np.asarray(cr.initial_residual), rtol=1e-12)
+
+
+def test_plain_solver_matches_reference_on_servo():
+    """A badly scaled plant (cost spread 1e7) at the default sigma0; the
+    second lane's initial state is infeasible (a certificate lane)."""
+    arrays = plant_arrays("servo_motor", 10, 2,
+                          x0s=[[0.0, 0.0, 0.0, 0.0], [0.1, 0.0, 0.0, 0.0]])
+    xr, cr, xt, ct = _solve_both(arrays, _jax_options("abs_tol_1e-8"))
+    assert np.asarray(cr.eflag).tolist() == [0, 3]
+    for f in ("eflag", "newton_iters", "prox_iters"):
+        np.testing.assert_array_equal(getattr(ct, f).numpy(),
+                                      np.asarray(getattr(cr, f)), err_msg=f)
+    zr = np.asarray(xr.z)
+    np.testing.assert_allclose(xt.z.numpy(), zr, rtol=1e-9,
+                               atol=1e-9 * (1 + np.abs(zr).max()))
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors():
+    arrays = mixed_batch()
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    td = torch_data(arrays, torch.float64)
+    z = lambda n: torch.zeros(8, n, dtype=torch.float64)
+    opts = Options(abs_tol=1e-8)
+    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    x1, c1 = mpc_solve_cuda.fbstab_mpc_solve_fused(td, z(nz), z(nl), z(nv),
+                                                   opts)
+    x2, c2 = mpc_solve_cuda.fbstab_mpc_solve_plain(td, z(nz), z(nl), z(nv),
+                                                   opts)
+    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches == before
+    torch.testing.assert_close(x1.z, x2.z, rtol=0, atol=0)
+    assert c1.eflag.tolist() == c2.eflag.tolist()
+
+
+def test_facade_solves_one_instance_like_the_batch():
+    arrays = plant_arrays("double_integrator", 6, 1, x0s=[[1.5, 0.3]])
+    td = torch_data(arrays, torch.float64)
+    solver = tm.FBstabMpc(6, 2, 1, 6)
+    solver.update_options(Options(abs_tol=1e-8))
+    x, out = solver.solve(td)
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    z = lambda n: torch.zeros(1, n, dtype=torch.float64)
+    xb, cb = tm.solve_mpc_qp_batch(td, z(nz), z(nl), z(nv), solver.options)
+    assert int(out.eflag) == 0 == int(cb.eflag[0])
+    assert int(out.newton_iters) == int(cb.newton_iters[0])
+    torch.testing.assert_close(x.z, xb.z, rtol=0, atol=0)
+    assert float(out.solve_time) >= 0.0
+    with pytest.raises(ValueError):
+        tm.FBstabMpc(5, 2, 1, 6).solve(td)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["headline_equilibrated", "mixed"])
+def test_cuda_kernel_matches_plain_version(case):
+    """K2 on the card against its plain version in float32, on the
+    equilibrated headline problem and on the mixed feasible / infeasible
+    batch: equal exit flags, Newton counts within +-2 on at least 90% of
+    lanes (float32 knife edges of the stall guard, see chip_smoke.py; the
+    per-lane counts are pinned in float64 by test_torch_device_code.py), z
+    within 1e-3 (1 + |z|) where both succeed."""
+    require_cuda()
+    dev = torch.device("cuda", 0)
+    arrays = headline_arrays(128) if case != "mixed" else mixed_batch()
+    data = torch_data(arrays, torch.float32, dev)
+    if case != "mixed":
+        data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    B = arrays["x0"].shape[0]
+    z = lambda n: torch.zeros(B, n, dtype=torch.float32, device=dev)
+    opts = Options.single_precision()
+    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    xk, ck = mpc_solve_cuda.fbstab_mpc_solve_fused(data, z(nz), z(nl), z(nv),
+                                                   opts)
+    torch.cuda.synchronize()
+    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches == before + 1
+    xp, cp = mpc_solve_cuda.fbstab_mpc_solve_plain(data, z(nz), z(nl), z(nv),
+                                                   opts)
+    assert (ck.eflag == cp.eflag).float().mean().item() >= 0.99
+    if case == "mixed":
+        assert ck.eflag.tolist() == [0, 0, 3, 0, 0, 3, 0, 0]
+    both = (ck.eflag == 0) & (cp.eflag == 0)
+    dn = (ck.newton_iters - cp.newton_iters).abs()[both]
+    assert (dn <= 2).float().mean().item() >= 0.90
+    zerr = (xk.z - xp.z).abs().amax(1) / (1 + xp.z.abs().amax(1))
+    assert zerr[both].max().item() <= 1e-3

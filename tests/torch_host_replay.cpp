@@ -1,0 +1,90 @@
+// The device code of the PyTorch port's CUDA kernels
+// (fbstab_tpu_torch/csrc/*.cuh) compiled as host C++ in float64: one loop
+// iteration per instance, behind the C interface of the CUDA library with
+// double in place of float. tests/test_torch_device_code.py builds it with
+// the host compiler and holds it lane for lane against the plain float64
+// versions of the kernels.
+#include <math.h>
+
+#define float double
+#define sqrtf sqrt
+#define fmaxf fmax
+#define fminf fmin
+#define fabsf fabs
+
+#include "mpc_solve.cuh"
+
+extern "C" {
+
+long long fb_riccati_ws_floats(int N, int nx, int nu, int nc) {
+  return ric_layout(MpcDims{N, nx, nu, nc}).total;
+}
+
+int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
+                    float om_alpha, const float* sigma, const float* Q,
+                    const float* R, const float* S, const float* A,
+                    const float* Bm, const float* E, const float* L,
+                    const float* v, const float* y, const float* vbar,
+                    const float* rz, const float* rl, const float* rv,
+                    float* dz, float* dl, float* ws) {
+  const MpcDims D{N, nx, nu, nc};
+  for (int b = 0; b < B; ++b) {
+    MpcProb P{};
+    P.Q = lane_of(Q, B, b);
+    P.R = lane_of(R, B, b);
+    P.S = lane_of(S, B, b);
+    P.A = lane_of(A, B, b);
+    P.B = lane_of(Bm, B, b);
+    P.E = lane_of(E, B, b);
+    P.L = lane_of(L, B, b);
+    riccati_factor_solve(D, sigma[b], alpha, om_alpha, P, lane_of(v, B, b),
+                         lane_of(y, B, b), lane_of(vbar, B, b),
+                         lane_of(rz, B, b), lane_of(rl, B, b),
+                         lane_of(rv, B, b), lane_of(dz, B, b),
+                         lane_of(dl, B, b), lane_of(ws, B, b));
+  }
+  return 0;
+}
+
+long long fb_solve_ws_floats(int N, int nx, int nu, int nc) {
+  return solve_layout(MpcDims{N, nx, nu, nc}).total;
+}
+
+int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
+                 const float* q, const float* r, const float* c,
+                 const float* x0, const float* d, const float* Q,
+                 const float* R, const float* S, const float* A,
+                 const float* Bm, const float* E, const float* L,
+                 const float* z0, const float* l0, const float* v0, float* z,
+                 float* l, float* v, float* y, int* eflag, float* res,
+                 int* newton, int* prox, float* res0, float* ws) {
+  const MpcDims D{N, nx, nu, nc};
+  for (int b = 0; b < B; ++b) {
+    MpcProb P;
+    P.Q = lane_of(Q, B, b);
+    P.R = lane_of(R, B, b);
+    P.S = lane_of(S, B, b);
+    P.q = lane_of(q, B, b);
+    P.r = lane_of(r, B, b);
+    P.A = lane_of(A, B, b);
+    P.B = lane_of(Bm, B, b);
+    P.c = lane_of(c, B, b);
+    P.E = lane_of(E, B, b);
+    P.L = lane_of(L, B, b);
+    P.d = lane_of(d, B, b);
+    P.x0 = lane_of(x0, B, b);
+    SolveOut out;
+    out.x = Vars{lane_of(z, B, b), lane_of(l, B, b), lane_of(v, B, b),
+                 lane_of(y, B, b)};
+    out.eflag = eflag + b;
+    out.res = res + b;
+    out.newton = newton + b;
+    out.prox = prox + b;
+    out.res0 = res0 + b;
+    fbstab_mpc_solve_lane(D, o, P, lane_of(z0, B, b), lane_of(l0, B, b),
+                          lane_of(v0, B, b), out, lane_of(ws, B, b));
+  }
+  return 0;
+}
+
+}  // extern "C"
