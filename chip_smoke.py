@@ -1,23 +1,40 @@
-"""Builds the port's CUDA kernels and drives its main path on one GPU.
+"""Builds the port's CUDA kernels and drives its main paths on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-envelope
 
-Phases, each printing one line and each fatal on failure:
+Phases, each printing one line (two for a kernel comparison) and each
+fatal on failure:
   1. device: nvidia-smi's name and power limit, torch's device name;
-  2. build: nvcc compiles fbstab_tpu_torch/csrc/*.cu (time, registers);
+  2. build: nvcc compiles fbstab_tpu_torch/csrc/*.cu, one process per
+     source (time, registers);
   3. K1 (Riccati Newton step) against its plain version at the headline
      shape, on iterates from a few plain Newton steps;
-  4. K2 (fused solver) against its plain version on the equilibrated
+  4. K2 (fused MPC solver) against its plain version on the equilibrated
      headline problem;
-  5. the main path, solve_mpc_qp_batch(..., Options.single_precision()),
-     at B = 8192, N = 30, nx = 8, nu = 3, nc = 6 (the bench.build_batch
-     generator, seed 0), checked in float64 on the host against the 1e-6
-     contract, with the kernels' launch counts;
-  6. the plant audit: three reference plants at B = 128 with perturbed x0.
+  5. K3 (fused dense solver) against its plain version on the equilibrated
+     bench.py dense problem (seed 1, n = 32, q = 64, nl = 0), on an
+     equality-constrained batch (n = 16, q = 32, nl = 8) and at the corner
+     of DENSE_DIMS_CAP (n = 32, q = 64, nl = 16), with Gaussian equality
+     rows;
+  6. the one-shot MPC path, solve_mpc_qp_batch(...,
+     Options.single_precision()), at B = 8192, N = 30, nx = 8, nu = 3,
+     nc = 6 (the bench.build_batch generator, seed 0), checked in float64
+     on the host against the 1e-6 contract, with the kernels' launches;
+  7. the dense path, solve_dense_qp_batch(..., Options.single_precision())
+     at B = 4096, n = 32, q = 64, as `bench.py dense` runs it;
+  8. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
+     phase1_newton_iters=16, phase2_size=max(B // 8, 128)) at B = 8192,
+     as bench.py's headline calls it;
+  9. the plant audit: three reference plants at B = 128 with perturbed x0.
 
 The next-to-last line is a JSON object describing each kernel, the last
 line {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
+
+With --k3-envelope it runs phases 1 and 2, then holds K3 against its plain
+version at B = 256 at each ENVELOPE shape within the JAX package's dense
+gate, none fatal: the survey DENSE_DIMS_CAP is chosen from.
 """
 
 from __future__ import annotations
@@ -30,22 +47,35 @@ import time
 import numpy as np
 import torch
 
-HEADLINE = dict(N=30, nx=8, nu=3, nc=6)
+from fbstab_tpu_torch.workloads import (
+    DENSE, HEADLINE, build_batch, build_dense, card, cuda_ms,
+    dense_f64_residual, dense_zeros, mpc_f64_residual, timed, zeros_guess)
+
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
-K2_Z_TOL = 1e-3    # |z_K - z_P|_inf <= K2_Z_TOL (1 + |z_P|_inf)
-K2_EFLAG_FRAC = 0.99
-K2_NEWTON_BAND = 2
+# Fused solver (K2, K3) against its plain version, both in float32.
+Z_TOL = 1e-3       # |z_K - z_P|_inf <= Z_TOL (1 + |z_P|_inf)
+EFLAG_FRAC = 0.99
+NEWTON_BAND = 2
 # float32 knife edges: the inner stall guard (3 steps without a 1e-3
 # relative gain) and the tolerance tests flip on last-bit differences, so
 # a few lanes of a float32 batch take a different Newton count in two
 # correct implementations (on an H100 80GB HBM3 at 700 W, beyond +-2 on
-# 6.25% of lanes at B = 128 and 4.2% at B = 1024). The per-lane decisions
-# are pinned in float64 instead: tests/test_torch_device_code.py replays
-# the kernel's device code on the CPU and requires the plain solver's exit
-# flag, Newton and proximal counts on every lane.
-K2_NEWTON_FRAC = 0.90
-K2_NEWTON_MEAN = 0.5     # |mean newton_iters kernel - plain|
+# 6.25% of lanes at B = 128 and 4.2% at B = 1024 for K2). The per-lane
+# decisions are pinned in float64 instead: tests/test_torch_device_code.py
+# replays the kernels' device code on the CPU and requires the plain
+# solver's exit flag, Newton and proximal counts on every lane.
+NEWTON_FRAC = 0.90
+NEWTON_MEAN = 0.5     # |mean newton_iters kernel - plain|
 CONTRACT = 1e-6
+# One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores and
+# HBM3 bandwidth, for the kernels' least possible times (bound_ms).
+PEAK_F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# --k3-envelope: the shapes (n, q, nl) within the JAX package's dense gate
+# (n <= 64, q <= 128, nl <= 64) at which K3 is surveyed against its plain
+# version; DENSE_DIMS_CAP is the largest box whose corner passes.
+ENVELOPE = ((32, 64, 0), (32, 64, 16), (32, 64, 32), (48, 96, 0),
+            (48, 96, 24), (64, 128, 0), (64, 128, 32), (64, 128, 64))
 
 
 def fail(msg: str) -> None:
@@ -53,81 +83,74 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
-    """bench.build_batch's scenario-MPC batch as numpy float64 arrays: a
-    shared stable plant, varied x0 and cost offsets, input box |u| <= 1."""
-    rng = np.random.default_rng(seed)
-    A1 = np.eye(nx) + 0.08 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
-    B1 = 0.2 * rng.standard_normal((nx, nu))
-    L1 = np.zeros((nc, nu))
-    L1[:nu] = np.eye(nu)
-    L1[nu:2 * nu] = -np.eye(nu)
-    tile = lambda M, n: np.broadcast_to(M, (B, n) + M.shape)
-    Np1 = N + 1
-    return dict(
-        Q=tile(np.eye(nx), Np1), R=tile(0.1 * np.eye(nu), Np1),
-        S=tile(np.zeros((nu, nx)), Np1),
-        q=0.1 * rng.standard_normal((B, Np1, nx)), r=np.zeros((B, Np1, nu)),
-        A=tile(A1, N), B=tile(B1, N), c=np.zeros((B, N, nx)),
-        E=tile(np.zeros((nc, nx)), Np1), L=tile(L1, Np1),
-        d=tile(-np.ones(nc), Np1), x0=rng.standard_normal((B, nx)))
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the card's
+    float32 peak and the bytes over its memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
-def build_batch(B, N, nx, nu, nc, device):
-    """The headline batch as float32 MpcQPData on `device`."""
-    from fbstab_tpu_torch.models.mpc_qp import mpc_qp_data
-    return mpc_qp_data(**headline_arrays(B, N, nx, nu, nc),
-                       dtype=torch.float32, device=device)
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def zeros_guess(data):
-    from fbstab_tpu_torch.models.mpc_qp import mpc_dims
-    N, nx, nu, nc = mpc_dims(data)
-    B, dev = data.x0.shape[0], data.x0.device
-    z = lambda n: torch.zeros(B, n, dtype=torch.float32, device=dev)
-    return z((N + 1) * (nx + nu)), z((N + 1) * nx), z((N + 1) * nc)
+# ------------------------------------------------------------------
+# Operation counts per instance, from the shapes (the dominant products;
+# a multiply-add counts two).
+# ------------------------------------------------------------------
+
+def riccati_flops(N, nx, nu, nc):
+    """One Riccati Newton step (K1): stage Hessians, the factor recursion
+    (Choleskys, triangular solves with matrix right-hand sides, products)
+    and the vector recursions."""
+    stage = (2 * nc * (nx * nx + nu * nu + nu * nx)      # E'GE, L'GL, L'GE
+             + 2 * nx ** 3 + nx ** 3 / 3                 # inv(L L'), chol M
+             + nx * nx * nu + nu ** 3 / 3 + 2 * nu * nu * nx   # SM, SG
+             + nx ** 3 + 2 * nx * nx * nu + nu * nu * nx       # AM, P
+             + nx ** 3 / 3 + 2 * nx * nx * nu + 2 * nx ** 3    # L(i+1)
+             + 12 * (nx * nx + nx * nu + nu * nu))        # vector passes
+    return (N + 1) * stage
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call on the card (CUDA events), after one
-    warm call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def mpc_residual_flops(N, nx, nu, nc):
+    ns = nx + nu
+    return (N + 1) * (2 * ns * ns + 6 * nx * ns + 2 * nc * ns + 10 * nc)
 
 
-def f64_residual(data, sol, alpha):
-    """Host float64 penalized natural residual per lane (bench.f64_pnr_np)."""
-    from bench import f64_pnr_np
-    from fbstab_tpu_torch.models.mpc_qp import MpcQPData
+def dense_step_flops(n, q, nl):
+    f = n * n * q + n ** 3 / 3 + 4 * n * q + 4 * n * n
+    if nl > 0:
+        f += n * n * nl + n * nl * nl + nl ** 3 / 3 + 4 * n * nl + 4 * nl * nl
+    return f
 
-    host = MpcQPData(*(a.double().cpu().numpy() for a in data))
-    x = sol.to_float64() if hasattr(sol, "to_float64") else sol
-    return f64_pnr_np(host, x.z.double().cpu().numpy(),
-                      x.l.double().cpu().numpy(), x.v.double().cpu().numpy(),
-                      alpha)
 
+def dense_residual_flops(n, q, nl):
+    return 2 * n * n + 4 * n * q + 4 * n * nl + 10 * q
+
+
+def solve_flops(step, residual, newton, prox):
+    """A fused solve: per Newton iteration one step, the inner residual,
+    the outer residual and one linesearch trial (the fewest: a full step
+    accepted); per proximal iteration the outer residual and the
+    infeasibility check (about two residuals)."""
+    return newton * (step + 3 * residual) + (prox + 1) * 3 * residual
+
+
+# ------------------------------------------------------------------
+# Phases.
+# ------------------------------------------------------------------
 
 def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        name = card()
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi failed: {e}")
     kind = torch.cuda.get_device_name(0)
-    print(card)
+    print(name)
     print(f"device: torch sees {kind} (count {torch.cuda.device_count()}), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    return card, kind
+    return name, kind
 
 
 def phase_build():
@@ -176,121 +199,225 @@ def phase_k1(B, device):
     max_abs = max((kz - pz).abs().max().item(), (kl - pl).abs().max().item())
     ms = cuda_ms(lambda: k1(*args), 5)
     plain_ms = cuda_ms(lambda: p1(*args), 3)
+    d = data
+    bound_ms, bound_by = bound(
+        B * riccati_flops(**HEADLINE),
+        nbytes(d.Q, d.R, d.S, d.A, d.B, d.E, d.L, x.v, x.y, x.v, r.z, r.l,
+               r.v, kz, kl))
     print(f"K1: B={B} max rel err {err.max().item():.3e} (tol {K1_TOL}) "
           f"max abs err {max_abs:.3e} | kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if not bool(torch.isfinite(err).all()) or err.max().item() > K1_TOL:
         fail("K1 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def compare_solver(name, kernel, plain, data, guess, opts, tag, reps=(2, 1),
+                   fatal=True):
+    """Holds a fused solver kernel against its plain version on the same
+    float32 inputs; prints two lines and, if `fatal`, fails beyond the
+    thresholds. Times each with CUDA events over `reps` calls after a warm
+    one, or (reps=None) the first calls on the host clock. Returns the
+    kernel's CoreOut, the max |z| error, both times and whether it passed."""
+    (xk, ck), first_k = timed(lambda: kernel(data, *guess, opts))
+    (xp, cp), first_p = timed(lambda: plain(data, *guess, opts))
+    same = (ck.eflag == cp.eflag).float().mean().item()
+    both = (ck.eflag == 0) & (cp.eflag == 0)
+    dn = (ck.newton_iters - cp.newton_iters).abs()[both]
+    in_band = (dn <= NEWTON_BAND).float().mean().item()
+    zerr = ((xk.z - xp.z).abs().amax(1) / (1 + xp.z.abs().amax(1)))[both]
+    max_abs = (xk.z - xp.z).abs()[both].max().item() if both.any() else 0.0
+    if reps is None:
+        ms, plain_ms = first_k, first_p
+    else:
+        ms = cuda_ms(lambda: kernel(data, *guess, opts), reps[0])
+        plain_ms = cuda_ms(lambda: plain(data, *guess, opts), reps[1])
+    B = guess[0].shape[0]
+    mk = ck.newton_iters[both].float().mean().item()
+    mp = cp.newton_iters[both].float().mean().item()
+    ok = (same >= EFLAG_FRAC and bool(both.any()) and in_band >= NEWTON_FRAC
+          and abs(mk - mp) <= NEWTON_MEAN and zerr.max().item() <= Z_TOL)
+    print(f"{name}: {tag} B={B} eflag equal {same:.4f} (>= {EFLAG_FRAC}); "
+          f"both SUCCESS {both.float().mean().item():.4f}; newton |diff| "
+          f"max {dn.max().item() if both.any() else 0}, within "
+          f"{NEWTON_BAND} on {in_band:.4f} (>= {NEWTON_FRAC}); mean newton "
+          f"kernel {mk:.2f} plain {mp:.2f}; z rel err max "
+          f"{zerr.max().item() if both.any() else 0:.3e} (tol {Z_TOL}) | "
+          f"kernel {ms:.1f} ms, plain {plain_ms:.1f} ms"
+          + ("" if reps else " (first calls, host clock)")
+          + ("" if ok else " | OUTSIDE THE THRESHOLDS"))
+    out = (both & ((ck.newton_iters - cp.newton_iters).abs()
+                   > NEWTON_BAND)).nonzero().flatten().tolist()
+    print(f"{name}: {tag} {len(out)} lanes beyond +-{NEWTON_BAND} Newton "
+          "steps (lane: newton kernel/plain, prox kernel/plain): "
+          + ", ".join(f"{b}: {int(ck.newton_iters[b])}/"
+                      f"{int(cp.newton_iters[b])}, {int(ck.prox_iters[b])}/"
+                      f"{int(cp.prox_iters[b])}" for b in out[:8])
+          + (" ..." if len(out) > 8 else ""))
+    if fatal and not ok:
+        fail(f"{name} disagrees with its plain version ({tag})")
+    return ck, max_abs, ms, plain_ms, ok
 
 
 def phase_k2(B, device):
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops.mpc_solve_cuda import (
-        fbstab_mpc_solve_fused as k2, fbstab_mpc_solve_plain as p2)
+        fbstab_mpc_solve_fused, fbstab_mpc_solve_plain)
     from fbstab_tpu_torch.options import Options
 
     opts = Options.single_precision()
     data = build_batch(B, **HEADLINE, device=device)
     data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
-    z0, l0, v0 = zeros_guess(data)
-    xk, ck = k2(data, z0, l0, v0, opts)
-    xp, cp = p2(data, z0, l0, v0, opts)
-    torch.cuda.synchronize()
-    same = (ck.eflag == cp.eflag).float().mean().item()
-    both = (ck.eflag == 0) & (cp.eflag == 0)
-    dn = (ck.newton_iters - cp.newton_iters).abs()[both]
-    in_band = (dn <= K2_NEWTON_BAND).float().mean().item()
-    zerr = ((xk.z - xp.z).abs().amax(1)
-            / (1 + xp.z.abs().amax(1)))[both]
-    max_abs = (xk.z - xp.z).abs()[both].max().item()
-    ms = cuda_ms(lambda: k2(data, z0, l0, v0, opts), 2)
-    plain_ms = cuda_ms(lambda: p2(data, z0, l0, v0, opts), 1)
-    print(f"K2: B={B} eflag equal {same:.4f} (>= {K2_EFLAG_FRAC}); both "
-          f"SUCCESS {both.float().mean().item():.4f}; newton |diff| max "
-          f"{dn.max().item()}, within {K2_NEWTON_BAND} on {in_band:.4f} "
-          f"(>= {K2_NEWTON_FRAC}); mean newton kernel "
-          f"{ck.newton_iters.float().mean().item():.2f} plain "
-          f"{cp.newton_iters.float().mean().item():.2f}; z rel err max "
-          f"{zerr.max().item():.3e} (tol {K2_Z_TOL}) | kernel {ms:.1f} ms, "
-          f"plain {plain_ms:.1f} ms")
-    out = (both & ((ck.newton_iters - cp.newton_iters).abs()
-                   > K2_NEWTON_BAND)).nonzero().flatten().tolist()
-    print(f"K2: {len(out)} lanes beyond +-{K2_NEWTON_BAND} Newton steps "
-          "(lane: newton kernel/plain, prox kernel/plain): " + ", ".join(
-              f"{b}: {int(ck.newton_iters[b])}/{int(cp.newton_iters[b])}, "
-              f"{int(ck.prox_iters[b])}/{int(cp.prox_iters[b])}"
-              for b in out[:8]) + (" ..." if len(out) > 8 else ""))
-    dmean = abs(ck.newton_iters[both].float().mean().item()
-                - cp.newton_iters[both].float().mean().item())
-    if (same < K2_EFLAG_FRAC or not bool(both.any())
-            or in_band < K2_NEWTON_FRAC or dmean > K2_NEWTON_MEAN
-            or zerr.max().item() > K2_Z_TOL):
-        fail("K2 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+    guess = zeros_guess(data)
+    ck, max_abs, ms, plain_ms, _ = compare_solver(
+        "K2", fbstab_mpc_solve_fused, fbstab_mpc_solve_plain, data, guess,
+        opts, "equilibrated headline")
+    flops = B * solve_flops(
+        riccati_flops(**HEADLINE) + 8 * (HEADLINE["N"] + 1) * HEADLINE["nc"],
+        mpc_residual_flops(**HEADLINE), ck.newton_iters.float().mean().item(),
+        ck.prox_iters.float().mean().item())
+    out_bytes = nbytes(*guess) + nbytes(guess[2]) + 5 * 4 * B
+    bound_ms, bound_by = bound(flops, nbytes(*data, *guess) + out_bytes)
+    print(f"K2: bound {bound_ms:.4f} ms ({bound_by}; mean newton "
+          f"{ck.newton_iters.float().mean().item():.2f}, one linesearch "
+          f"trial each)")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def k3_compare(B, n, q, nl, device, kernel=None, **kw):
+    """K3 (or `kernel`) against its plain version on the equilibrated
+    dense batch."""
+    from fbstab_tpu_torch.models.scaling import (
+        apply_dense_scaling, ruiz_dense_scaling)
+    from fbstab_tpu_torch.ops.dense_solve_cuda import (
+        fbstab_dense_solve_fused, fbstab_dense_solve_plain)
+    from fbstab_tpu_torch.options import Options
+
+    data = build_dense(B, n, q, nl, device)
+    data = apply_dense_scaling(data, ruiz_dense_scaling(data))
+    guess = dense_zeros(data)
+    return data, guess, compare_solver(
+        "K3", kernel or fbstab_dense_solve_fused, fbstab_dense_solve_plain,
+        data, guess, Options.single_precision(), f"n={n} q={q} nl={nl}",
+        **kw)
+
+
+def phase_k3(device):
+    """K3 against its plain version at three shapes: the bench.py dense
+    shape (its numbers go into the kernel line, and n and q are the cap's),
+    an equality-constrained shape and the corner of DENSE_DIMS_CAP."""
+    from fbstab_tpu_torch.models.dense_qp import DENSE_DIMS_CAP as cap
+
+    B, n, q, nl = 1024, DENSE["n"], DENSE["q"], 0
+    data, guess, (ck, max_abs, ms, plain_ms, _) = k3_compare(
+        B, n, q, nl, device)
+    flops = B * solve_flops(
+        dense_step_flops(n, q, nl), dense_residual_flops(n, q, nl),
+        ck.newton_iters.float().mean().item(),
+        ck.prox_iters.float().mean().item())
+    out_bytes = nbytes(guess[0], guess[1]) + 2 * nbytes(guess[2]) + 5 * 4 * B
+    bound_ms, bound_by = bound(flops, nbytes(*data, *guess) + out_bytes)
+    print(f"K3: bound {bound_ms:.4f} ms ({bound_by}; mean newton "
+          f"{ck.newton_iters.float().mean().item():.2f}, one linesearch "
+          f"trial each)")
+    k3_compare(256, 16, 32, 8, device)
+    k3_compare(256, cap["n"], cap["q"], cap["nl"], device)
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def k3_envelope(device):
+    """K3 against its plain version at B = 256 at each ENVELOPE shape, one
+    timed call each after a warm one, none fatal. The kernel's wrapper
+    refuses shapes beyond DENSE_DIMS_CAP, so the survey launches it
+    directly."""
+    from fbstab_tpu_torch.ops import _build
+    from fbstab_tpu_torch.ops.dense_solve_cuda import launch_dense_solve
+
+    lib = _build.load_library()
+
+    def kernel(data, z0, l0, v0, options):
+        stream = torch.cuda.current_stream(z0.device).cuda_stream
+        return launch_dense_solve(lib, data, z0, l0, v0, options, stream)
+
+    for n, q, nl in ENVELOPE:
+        k3_compare(256, n, q, nl, device, kernel=kernel, reps=(1, 1),
+                   fatal=False)
+
+
+def reset_launches():
+    from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
+    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
+    kernels = dict(K1=riccati_newton_step_batched, K2=fbstab_mpc_solve_fused,
+                   K3=fbstab_dense_solve_fused)
+    for k in kernels.values():
+        k.launches = 0
+    return lambda: {name: k.launches for name, k in kernels.items()}
+
+
+def drive(fn, reps=3):
+    """One warm call, then `reps` timed calls (host clock around
+    synchronized calls). Returns (last result, times in s)."""
+    times = []
+    for i in range(reps + 1):
+        out, ms = timed(fn)
+        if i:
+            times.append(ms / 1e3)
+    return out, times
+
+
+def check_contract(tag, x, core, res64, guess, every_lane):
+    good = (core.eflag == 0).cpu().numpy()
+    sol = x.to_float64()
+    finite = all(bool(torch.isfinite(a).all()) for a in sol)
+    if not (finite and tuple(sol.z.shape) == tuple(guess[0].shape)):
+        fail(f"{tag} returned non-finite values or the wrong shape")
+    ok = res64 <= CONTRACT
+    if good.mean() < 0.99 or not bool(np.all(ok if every_lane
+                                              else ok[good])):
+        fail(f"{tag} misses the contract")
+    return good
 
 
 def phase_main(B, device):
     from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
-    from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
-    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     from fbstab_tpu_torch.options import Options
 
     opts = Options.single_precision()
     data = build_batch(B, **HEADLINE, device=device)
-    z0, l0, v0 = zeros_guess(data)
-    fbstab_mpc_solve_fused.launches = 0
-    riccati_newton_step_batched.launches = 0
-    times = []
-    for i in range(4):           # one warm call, then three timed calls
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, core = solve_mpc_qp_batch(data, z0, l0, v0, opts)
-        torch.cuda.synchronize()
-        if i:
-            times.append(time.perf_counter() - t0)
-    k2n = fbstab_mpc_solve_fused.launches
-    k1n = riccati_newton_step_batched.launches
-    good = (core.eflag == 0).cpu().numpy()
-    res64 = f64_residual(data, x, opts.alpha)
-    sol = x.to_float64()
-    finite = all(bool(torch.isfinite(a).all()) for a in sol)
-    shape_ok = tuple(sol.z.shape) == tuple(z0.shape)
+    guess = zeros_guess(data)
+    counts = reset_launches()
+    (x, core), times = drive(
+        lambda: solve_mpc_qp_batch(data, *guess, opts))
+    n = counts()
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    good = check_contract("one-shot MPC path", x, core, res64, guess, True)
     qps = B / min(times)
-    frac = float(np.mean(res64 <= CONTRACT))
     print(f"main: B={B} QPs/s {qps:.1f} (best of "
           f"{[round(t, 4) for t in times]} s) success_frac "
           f"{good.mean():.4f} residual_f64_max {res64.max():.3e} "
-          f"residual_f64_frac_le_1e6 {frac:.4f} refine_steps max "
-          f"{int(core.refine_steps.max())} | launches K2 {k2n} K1 {k1n}")
-    breakdown(data, z0, l0, v0, opts)
-    if not (finite and shape_ok):
-        fail("main path returned non-finite values or the wrong shape")
-    if good.mean() < 0.99 or frac < 1.0:
-        fail("main path misses the contract")
-    if k2n < 1 or k1n < 1:
-        fail("main path did not launch both kernels")
-    return k1n, k2n
+          f"residual_f64_frac_le_1e6 {np.mean(res64 <= CONTRACT):.4f} "
+          f"refine_steps max {int(core.refine_steps.max())} | launches K2 "
+          f"{n['K2']} K1 {n['K1']}")
+    mpc_breakdown(data, *guess, opts)
+    if n["K2"] < 1 or n["K1"] < 1:
+        fail("one-shot MPC path did not launch K1 and K2")
+    return qps, n
 
 
-def breakdown(data, z0, l0, v0, opts):
-    """One more main-path call, timed stage by stage (host clock around
-    synchronized stages): Ruiz scaling, the scaled solve (K2 with its
-    layout transposes), the refinement loop (K1 and the double-float
-    residuals)."""
+def mpc_breakdown(data, z0, l0, v0, opts):
+    """One more one-shot call, timed stage by stage: Ruiz scaling, the
+    scaled solve (K2 with its layout transposes), the refinement loop (K1
+    and the double-float residuals)."""
     from fbstab_tpu_torch.models.mpc_qp import _solve_mpc_qp_batch_raw
     from fbstab_tpu_torch.models.refine import refine_solution_mpc
     from fbstab_tpu_torch.models.scaling import (
         ruiz_mpc_scaling, solve_scaled_mpc)
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     o = opts.validated()
     scal, t_ruiz = timed(lambda: ruiz_mpc_scaling(data))
@@ -305,6 +432,101 @@ def breakdown(data, z0, l0, v0, opts):
           f"{t_solve:.1f} | refine {t_ref:.1f} "
           f"({riccati_newton_step_batched.launches - n1} K1 launches) | "
           f"LINEAR_SOLVER_FAILED lanes before retry {fails}")
+
+
+def phase_dense_main(B, device):
+    from fbstab_tpu_torch.models.dense_qp import (
+        _solve_dense_qp_batch_raw, solve_dense_qp_batch)
+    from fbstab_tpu_torch.models.refine import refine_solution_dense
+    from fbstab_tpu_torch.models.scaling import (
+        ruiz_dense_scaling, solve_scaled_dense)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_dense(B, DENSE["n"], DENSE["q"], 0, device)
+    guess = dense_zeros(data)
+    counts = reset_launches()
+    (x, core), times = drive(
+        lambda: solve_dense_qp_batch(data, *guess, opts))
+    n = counts()
+    res64 = dense_f64_residual(data, x, opts.alpha)
+    good = check_contract("dense path", x, core, res64, guess, False)
+    print(f"dense: B={B} n={DENSE['n']} q={DENSE['q']} QPs/s "
+          f"{B / min(times):.1f} (best of {[round(t, 4) for t in times]} s)"
+          f" success_frac {good.mean():.4f} residual_f64_max_success "
+          f"{res64[good].max():.3e} refine_steps max "
+          f"{int(core.refine_steps.max())} | launches K3 {n['K3']}")
+    o = opts.validated()
+    scal, t_ruiz = timed(lambda: ruiz_dense_scaling(data))
+    (xs, cs), t_solve = timed(lambda: solve_scaled_dense(
+        lambda d, z, l, v: _solve_dense_qp_batch_raw(d, z, l, v, o), data,
+        *guess, o, scal=scal, skip_residual_rewrite=True))
+    _, t_ref = timed(lambda: refine_solution_dense(data, xs, cs, o,
+                                                   scal=scal))
+    print(f"dense breakdown (ms): ruiz {t_ruiz:.1f} | scaled solve (K3) "
+          f"{t_solve:.1f} | refine {t_ref:.1f} | LINEAR_SOLVER_FAILED "
+          f"lanes before retry {int((cs.eflag == 6).sum())}")
+    if n["K3"] < 1:
+        fail("dense path did not launch K3")
+    return n
+
+
+def phase_adaptive(B, device, oneshot_qps):
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.models.refine import refine_solution_mpc
+    from fbstab_tpu_torch.models.scaling import ruiz_mpc_scaling
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.parallel.adaptive import (
+        solve_batch_adaptive_device, solve_mpc_qp_batch_adaptive_device)
+
+    opts = Options.single_precision()
+    data = build_batch(B, **HEADLINE, device=device)
+    guess = zeros_guess(data)
+    phase1, P2 = 16, max(B // 8, 128)
+    counts = reset_launches()
+    (x, core), times = drive(lambda: solve_mpc_qp_batch_adaptive_device(
+        data, *guess, opts, phase1_newton_iters=phase1, phase2_size=P2))
+    n = counts()
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    good = check_contract("adaptive MPC headline", x, core, res64, guess,
+                          True)
+    print(f"adaptive: B={B} phase1={phase1} P2={P2} QPs/s "
+          f"{B / min(times):.1f} (best of {[round(t, 4) for t in times]} s;"
+          f" one-shot {oneshot_qps:.1f}) success_frac {good.mean():.4f} "
+          f"residual_f64_max {res64.max():.3e} | launches K2 {n['K2']} K1 "
+          f"{n['K1']}")
+
+    # One more call through the generic wrapper, each stage timed.
+    stages = []
+
+    def solve(d, z, l, v, o, **kw):
+        (xs, cs), ms = timed(lambda: solve_mpc_qp_batch(d, z, l, v, o, **kw))
+        retry = (cs.eflag == 2) | (cs.eflag == 6)
+        stages.append((z.shape[0], int(retry.sum()), ms))
+        return xs, cs
+
+    def refine(*a, **k):
+        out, stages_ms["refine"] = timed(lambda: refine_solution_mpc(*a, **k))
+        return out
+
+    def scaling(d):
+        out, stages_ms["ruiz"] = timed(lambda: ruiz_mpc_scaling(d))
+        return out
+
+    stages_ms = {}
+    solve_batch_adaptive_device(
+        solve, refine, data, *guess, opts, phase1_newton_iters=phase1,
+        phase2_size=P2, make_scaling=scaling)
+    fired = len(stages) > 2
+    print(f"adaptive breakdown (ms): ruiz {stages_ms['ruiz']:.1f} | "
+          + " | ".join(f"stage {i} (B={b}) {ms:.1f}, {k} stragglers out"
+                       for i, (b, k, ms) in enumerate(stages))
+          + f" | refine {stages_ms['refine']:.1f} | phase-2 stragglers "
+          f"{stages[0][1]} (capacity {P2}), fallback "
+          f"{'fired' if fired else 'not fired'}")
+    if n["K2"] < 1 or n["K1"] < 1:
+        fail("adaptive MPC headline did not launch K1 and K2")
+    return n
 
 
 def phase_plants(B, device):
@@ -329,10 +551,9 @@ def phase_plants(B, device):
         offs[0] = 0.0            # lane 0 is the reference's own instance
         data = data._replace(x0=torch.tensor(
             x0[None] + offs, dtype=torch.float32, device=device))
-        z0, l0, v0 = zeros_guess(data)
-        x, core = solve_mpc_qp_batch(data, z0, l0, v0, opts)
+        x, core = solve_mpc_qp_batch(data, *zeros_guess(data), opts)
         good = (core.eflag == 0).cpu().numpy()
-        res64 = f64_residual(data, x, opts.alpha)
+        res64 = mpc_f64_residual(data, x, opts.alpha)
         worst = float(res64[good].max()) if good.any() else float("nan")
         plant_ok = (bool(good[0]) and res64[0] <= CONTRACT
                     and bool(np.all(res64[good] <= CONTRACT)))
@@ -349,26 +570,36 @@ def phase_plants(B, device):
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the kernels run only on the card")
-    import fbstab_tpu_torch  # noqa: F401  (fails outside the repository)
-
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card, kind = phase_device()
+    _, kind = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--k3-envelope"]:
+        k3_envelope(device)
+        return
     k1 = phase_k1(8192, device)
     k2 = phase_k2(1024, device)
-    k1n, k2n = phase_main(8192, device)
+    k3 = phase_k3(device)
+    qps, n_oneshot = phase_main(8192, device)
+    n_dense = phase_dense_main(4096, device)
+    n_adapt = phase_adaptive(8192, device, qps)
     phase_plants(128, device)
+    by_path = lambda k: {"mpc_one_shot": n_oneshot[k],
+                         "dense": n_dense[k], "mpc_adaptive": n_adapt[k]}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
              source="fbstab_tpu_torch/csrc/riccati.cu",
              replaces="fbstab_tpu/ops/riccati_pallas.py:418",
-             launches=k1n, **k1),
+             launches=n_adapt["K1"], launches_by_path=by_path("K1"), **k1),
         dict(name="fbstab_mpc_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_solve.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1109",
-             launches=k2n, **k2),
+             launches=n_adapt["K2"], launches_by_path=by_path("K2"), **k2),
+        dict(name="fbstab_dense_solve_fused", route="cuda",
+             source="fbstab_tpu_torch/csrc/dense_solve.cu",
+             replaces="fbstab_tpu/ops/dense_solve_pallas.py:421",
+             launches=n_dense["K3"], launches_by_path=by_path("K3"), **k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

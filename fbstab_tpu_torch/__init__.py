@@ -1,15 +1,25 @@
 """fbstab_tpu_torch: the PyTorch / CUDA port of fbstab_tpu.
 
-The batched float32 MPC contract solve (`solve_mpc_qp_batch` under
-`Options.single_precision()`) runs on an NVIDIA H100 through two
-hand-written CUDA kernels, the fused solver (ops/mpc_solve_cuda.py) and
-the Riccati Newton step (ops/riccati_cuda.py), and everywhere else through
-their plain PyTorch versions. The JAX package `fbstab_tpu` is the
-reference this package is tested against; nothing here imports JAX.
+The batched float32 contract solves of the MPC and dense QP classes
+(`solve_mpc_qp_batch` / `solve_dense_qp_batch` under
+`Options.single_precision()`, one-shot or through the adaptive two-phase
+wrappers of parallel/adaptive.py) run on an NVIDIA H100 through
+hand-written CUDA kernels: the fused MPC solver (ops/mpc_solve_cuda.py),
+the Riccati Newton step (ops/riccati_cuda.py) and the fused dense solver
+(ops/dense_solve_cuda.py); on the CPU, through their plain PyTorch
+versions. Data goes on the card unless the caller passes device="cpu".
+The JAX package `fbstab_tpu` is the reference this package is tested
+against; nothing here imports JAX.
 """
 
 from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
 from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.models.dense_qp import (
+    DenseQPData,
+    FBstabDense,
+    dense_qp_data,
+    solve_dense_qp_batch,
+)
 from fbstab_tpu_torch.models.mpc_qp import (
     FBstabMpc,
     MpcQPData,
@@ -20,10 +30,23 @@ from fbstab_tpu_torch.models.mpc_qp import (
 )
 from fbstab_tpu_torch.models.refine import VariableDF
 from fbstab_tpu_torch.options import Display, Options
+from fbstab_tpu_torch.parallel.adaptive import (
+    solve_dense_qp_batch_adaptive,
+    solve_dense_qp_batch_adaptive_device,
+    solve_dense_qp_batch_adaptive_schedule,
+    solve_mpc_qp_batch_adaptive,
+    solve_mpc_qp_batch_adaptive_device,
+    solve_mpc_qp_batch_adaptive_schedule,
+)
 from fbstab_tpu_torch.solver_out import ExitFlag, SolverOut
 
 __all__ = [
-    "CoreOut", "Display", "ExitFlag", "FBstabMpc", "MpcQPData", "Options",
-    "SolverOut", "Variable", "VariableDF", "batch_data",
-    "fbstab_solve_batch", "mpc_dims", "mpc_qp_data", "solve_mpc_qp_batch",
+    "CoreOut", "DenseQPData", "Display", "ExitFlag", "FBstabDense",
+    "FBstabMpc", "MpcQPData", "Options", "SolverOut", "Variable",
+    "VariableDF", "batch_data", "dense_qp_data", "fbstab_solve_batch",
+    "mpc_dims", "mpc_qp_data", "solve_dense_qp_batch",
+    "solve_dense_qp_batch_adaptive", "solve_dense_qp_batch_adaptive_device",
+    "solve_dense_qp_batch_adaptive_schedule", "solve_mpc_qp_batch",
+    "solve_mpc_qp_batch_adaptive", "solve_mpc_qp_batch_adaptive_device",
+    "solve_mpc_qp_batch_adaptive_schedule",
 ]

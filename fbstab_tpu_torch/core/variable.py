@@ -18,6 +18,15 @@ class Variable(NamedTuple):
     y: torch.Tensor
 
 
+def tree_map(f, *trees):
+    """Maps f over matching tensor leaves of nested (named) tuples."""
+    t0 = trees[0]
+    if not isinstance(t0, tuple):
+        return f(*trees)
+    mapped = (tree_map(f, *ch) for ch in zip(*trees))
+    return type(t0)(*mapped) if hasattr(t0, "_fields") else tuple(mapped)
+
+
 def lane_col(a):
     """A per-lane (B,) tensor as a (B, 1) column; scalars pass through."""
     if isinstance(a, torch.Tensor) and a.ndim == 1:

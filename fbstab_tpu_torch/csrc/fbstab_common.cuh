@@ -78,3 +78,45 @@ FB_DEV float fb_pfb(float a, float b, float alpha, float om_alpha) {
   float fb = a + b - sqrtf(a * a + b * b);
   return alpha * fb + om_alpha * fmaxf(0.0f, a) * fmaxf(0.0f, b);
 }
+
+// Small dense linear algebra on row-major blocks of one instance, shared
+// by the kernels.
+
+// In place lower Cholesky of the n x n row-major block A (lower triangle
+// read; the strict upper triangle is zeroed).
+FB_DEV void fb_chol(Lane A, int n) {
+  for (int k = 0; k < n; ++k) {
+    float d = sqrtf(A[k * n + k]);
+    for (int r = k; r < n; ++r) A[r * n + k] = A[r * n + k] / d;
+    for (int r = k + 1; r < n; ++r) {
+      float lrk = A[r * n + k];
+      for (int c = k + 1; c <= r; ++c) A[r * n + c] -= lrk * A[c * n + k];
+    }
+  }
+  for (int r = 0; r < n; ++r)
+    for (int c = r + 1; c < n; ++c) A[r * n + c] = 0.0f;
+}
+
+// x <- inv(L) x for lower L (n x n).
+FB_DEV void fb_trsv_lower(Lane L, int n, Lane x) {
+  for (int k = 0; k < n; ++k) {
+    float xk = x[k] / L[k * n + k];
+    x[k] = xk;
+    for (int r = k + 1; r < n; ++r) x[r] -= L[r * n + k] * xk;
+  }
+}
+
+// x <- inv(L') x for lower L (n x n).
+FB_DEV void fb_trsv_upperT(Lane L, int n, Lane x) {
+  for (int k = n - 1; k >= 0; --k) {
+    float xk = x[k] / L[k * n + k];
+    x[k] = xk;
+    for (int r = 0; r < k; ++r) x[r] -= L[k * n + r] * xk;
+  }
+}
+
+// x <- inv(L L') x.
+FB_DEV void fb_cho_solve(Lane L, int n, Lane x) {
+  fb_trsv_lower(L, n, x);
+  fb_trsv_upperT(L, n, x);
+}

@@ -1,76 +1,10 @@
-// The whole FBstab MPC algorithm for one instance: the outer proximal
-// loop, the inner semismooth Newton loop on riccati_factor_solve, the
-// nonmonotone backtracking linesearch, the infeasibility checks and the
-// exit flags, in the order of checks of core/algorithm.py (reference
-// fbstab_algorithm-impl.h:113-304). A transcription of
-// `vmap(fbstab_solve)` for one lane: each instance runs its own loops, so
-// nothing is masked.
+// K2's problem class: the MPC QP of one instance (stage-major data, the
+// Riccati Newton step of riccati.cuh) for the shared FBstab loop of
+// fbstab_solve.cuh.
 #pragma once
 
+#include "fbstab_solve.cuh"
 #include "riccati.cuh"
-
-// Options baked into the solve (fields of Options.validated(); float
-// constants rounded once to float32, as the JAX solvers round theirs).
-struct SolveOpts {
-  float sigma, alpha, om_alpha, beta, eta, delta;
-  float abs_tol, rel_tol, stall_tol, infeas_tol;
-  float inner_tol_max, inner_tol_min, inner_stall_tol, om_stall;
-  int max_newton, max_prox, max_inner, max_ls;
-  int check_feasibility, nonmonotone;
-};
-
-// Exit flags (solver_out.py ExitFlag).
-enum {
-  FB_SUCCESS = 0,
-  FB_MAXITERATIONS = 2,
-  FB_PRIMAL_INFEASIBLE = 3,
-  FB_DUAL_INFEASIBLE = 4,
-  FB_PRIMAL_DUAL_INFEASIBLE = 5,
-  FB_LINEAR_SOLVER_FAILED = 6,
-};
-
-#define FB_MERIT_DEPTH 5  // NONMONOTONE_DEPTH
-
-// Offsets (floats per instance) of the solver scratch: the Newton-step
-// scratch, then the iterates xk, xi, the step d, the trial point xt and
-// the negated residual r (z, l, v parts).
-struct SolveLayout {
-  long long ric, xk, xi, d, xt, r, total;
-};
-
-FB_HD long long fb_vars_floats(const MpcDims& D) {
-  long long N1 = D.N + 1;
-  return N1 * (D.nx + D.nu) + N1 * D.nx + 2 * N1 * D.nc;
-}
-
-FB_HD SolveLayout solve_layout(const MpcDims& D) {
-  SolveLayout s;
-  long long nvar = fb_vars_floats(D);
-  s.ric = 0;
-  s.xk = ric_layout(D).total;
-  s.xi = s.xk + nvar;
-  s.d = s.xi + nvar;
-  s.xt = s.d + nvar;
-  s.r = s.xt + nvar;
-  s.total = s.r + nvar;
-  return s;
-}
-
-FB_DEV Vars vars_at(const MpcDims& D, Lane base) {
-  long long N1 = D.N + 1, nz = N1 * (D.nx + D.nu), nl = N1 * D.nx,
-            nv = N1 * D.nc;
-  return Vars{base, base.at(nz), base.at(nz + nl), base.at(nz + nl + nv)};
-}
-
-FB_DEV void vars_copy(const MpcDims& D, const Vars& dst, const Vars& src) {
-  long long N1 = D.N + 1;
-  for (long long k = 0; k < N1 * (D.nx + D.nu); ++k) dst.z[k] = src.z[k];
-  for (long long k = 0; k < N1 * D.nx; ++k) dst.l[k] = src.l[k];
-  for (long long k = 0; k < N1 * D.nc; ++k) {
-    dst.v[k] = src.v[k];
-    dst.y[k] = src.y[k];
-  }
-}
 
 // (E z_x + L z_u) at stage s, row c.
 FB_DEV float fb_gemvA_row(const MpcDims& D, const MpcProb& P, Lane z, int s,
@@ -205,11 +139,6 @@ FB_DEV float fb_residual(const MpcDims& D, const SolveOpts& o,
   return sqrtf(sz + sl + sv);
 }
 
-FB_DEV float fb_pnr_norm(const MpcDims& D, const SolveOpts& o,
-                         const MpcProb& P, const Vars& x) {
-  return fb_residual(D, o, P, x, x, false, false, x);
-}
-
 // One Newton step at x about xbar: reads the negated inner residual from
 // r, writes the step to d (dz, dl by the Riccati solve; dv, dy by the
 // dual recovery, riccati_linear_solver.cc:329-342). Returns false when
@@ -233,20 +162,6 @@ FB_DEV bool fb_newton_step(const MpcDims& D, const SolveOpts& o,
   for (long long k = 0; k < N1 * (D.nx + D.nu); ++k) ok = ok && !isnan(d.z[k]);
   for (long long k = 0; k < N1 * D.nx; ++k) ok = ok && !isnan(d.l[k]);
   return ok;
-}
-
-// xt = x + t d with the margin rule y <- y + t (dy - b), b = -d_data
-// (full_variable.cc:55-65).
-FB_DEV void fb_axpy(const MpcDims& D, const MpcProb& P, const Vars& xt,
-                    float t, const Vars& dx, const Vars& x) {
-  long long N1 = D.N + 1;
-  for (long long k = 0; k < N1 * (D.nx + D.nu); ++k)
-    xt.z[k] = x.z[k] + t * dx.z[k];
-  for (long long k = 0; k < N1 * D.nx; ++k) xt.l[k] = x.l[k] + t * dx.l[k];
-  for (long long k = 0; k < N1 * D.nc; ++k) {
-    xt.v[k] = x.v[k] + t * dx.v[k];
-    xt.y[k] = x.y[k] + t * (dx.y[k] + P.d[k]);
-  }
 }
 
 // Infeasibility certificates at the step dx (full_feasibility.cc:29-77).
@@ -285,172 +200,70 @@ FB_DEV void fb_feasibility(const MpcDims& D, const MpcProb& P,
   p_inf = (p1 <= tol * u) && ((p2h + p2b) < 0.0f);
 }
 
-// Semismooth Newton on the proximal subproblem about xk (impl.h:229-304).
-// xi enters equal to xk. Returns Eo; updates newton and lfail.
-FB_DEV float fb_subproblem(const MpcDims& D, const SolveOpts& o,
-                           const MpcProb& P, const Vars& xk, const Vars& xi,
-                           const Vars& d, const Vars& xt, const Vars& r,
-                           Lane ws, float tol, float Eouter, int& newton,
-                           bool& lfail) {
-  float Eo = 0.0f;
-  float buf[FB_MERIT_DEPTH];
-  for (int k = 0; k < FB_MERIT_DEPTH; ++k) buf[k] = 0.0f;
-  float Ei_best = INFINITY;
-  int stall = 0;
-  for (int i = 0; i < o.max_inner; ++i) {
-    float Ei = fb_residual(D, o, P, xi, xk, true, true, r);
-    Eo = fb_pnr_norm(D, o, P, xi);
-    bool brk = ((Ei <= tol) && (Eo < Eouter)) || (Ei <= o.inner_tol_min)
-               || (newton >= o.max_newton);
-    if (o.inner_stall_tol > 0.0f) {
-      bool improved = Ei < Ei_best * o.om_stall;
-      stall = improved ? 0 : stall + 1;
-      brk = brk || (stall >= 3);
-    }
-    Ei_best = fminf(Ei_best, Ei);
-    if (brk) break;
+// The MPC problem class of fbstab_solve.cuh: data P of dims D, Riccati
+// scratch ws.
+struct MpcSolveProb {
+  MpcDims D;
+  MpcProb P;
+  Lane ws;
 
-    if (!fb_newton_step(D, o, P, xi, xk, r, d, ws)) {
-      lfail = true;  // impl.h:263-267: no newton_iters++ on failure
-      break;
-    }
-    // Nonmonotone merit history (impl.h:277-280).
-    float cm = 0.5f * Ei * Ei;
-    for (int k = FB_MERIT_DEPTH - 1; k > 0; --k) buf[k] = buf[k - 1];
-    buf[0] = cm;
-    float m0 = cm;
-    if (o.nonmonotone) {
-      m0 = buf[0];
-      for (int k = 1; k < FB_MERIT_DEPTH; ++k) m0 = fmaxf(m0, buf[k]);
-    }
-    // Backtracking linesearch (impl.h:283-297).
-    float t = 1.0f;
-    for (int j = 0; j < o.max_ls; ++j) {
-      fb_axpy(D, P, xt, t, d, xi);
-      float np = fb_residual(D, o, P, xt, xk, true, false, r);
-      float mp = 0.5f * np * np;
-      if (mp <= m0 - 2.0f * t * o.eta * cm) break;
-      t = t * o.beta;
-    }
-    fb_axpy(D, P, xi, t, d, xi);
-    newton += 1;
+  FB_DEV long long nz() const {
+    return (long long)(D.N + 1) * (D.nx + D.nu);
   }
-  // Project duals (impl.h:301).
-  long long nv = (long long)(D.N + 1) * D.nc;
-  for (long long k = 0; k < nv; ++k) xi.v[k] = fmaxf(xi.v[k], 0.0f);
-  return Eo;
-}
+  FB_DEV long long nl() const { return (long long)(D.N + 1) * D.nx; }
+  FB_DEV long long nv() const { return (long long)(D.N + 1) * D.nc; }
 
-// Outputs of one instance.
-struct SolveOut {
-  Vars x;       // z, l, v, y
-  int* eflag;   // one entry per instance, already offset to this lane
-  float* res;
-  int* newton;
-  int* prox;
-  float* res0;
+  FB_DEV float b(long long k) const { return -P.d[k]; }
+  FB_DEV float Az(Lane z, long long k) const {
+    return fb_gemvA_row(D, P, z, (int)(k / D.nc), (int)(k % D.nc));
+  }
+  FB_DEV float forcing_sq() const {
+    const int nx = D.nx, nc = D.nc, ns = nx + D.nu;
+    float fs = 0.0f;
+    for (int s = 0; s <= D.N; ++s) {
+      for (int j = 0; j < ns; ++j) {
+        float a = fb_f(D, P, s, j);
+        fs += a * a;
+      }
+      for (int i = 0; i < nx; ++i) {
+        float a = fb_h(D, P, s, i);
+        fs += a * a;
+      }
+      for (int c = 0; c < nc; ++c) {
+        float a = P.d[(long long)s * nc + c];
+        fs += a * a;
+      }
+    }
+    return fs;
+  }
+  FB_DEV float residual(const SolveOpts& o, const Vars& x, const Vars& xb,
+                        bool inner, bool store, const Vars& r) const {
+    return fb_residual(D, o, P, x, xb, inner, store, r);
+  }
+  FB_DEV bool newton_step(const SolveOpts& o, const Vars& x,
+                          const Vars& xbar, const Vars& r,
+                          const Vars& d) const {
+    return fb_newton_step(D, o, P, x, xbar, r, d, ws);
+  }
+  FB_DEV void feasibility(const Vars& dx, float tol, bool& p_inf,
+                          bool& d_inf) const {
+    fb_feasibility(D, P, dx, tol, p_inf, d_inf);
+  }
 };
 
-// The whole solve of one instance from (z0, l0, v0).
+// Solver scratch per instance: the Riccati scratch, then the iterates.
+FB_HD SolveLayout solve_layout(const MpcDims& D) {
+  long long N1 = D.N + 1;
+  return fb_solve_layout(
+      ric_layout(D).total,
+      fb_vars_floats(N1 * (D.nx + D.nu), N1 * D.nx, N1 * D.nc));
+}
+
+// The whole solve of one MPC instance from (z0, l0, v0).
 FB_DEV void fbstab_mpc_solve_lane(const MpcDims& D, const SolveOpts& o,
                                   const MpcProb& P, Lane z0, Lane l0, Lane v0,
                                   const SolveOut& out, Lane ws) {
-  const int nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
-  const long long N1 = D.N + 1;
   const SolveLayout L = solve_layout(D);
-  const Vars xk = vars_at(D, ws.at(L.xk)), xi = vars_at(D, ws.at(L.xi));
-  const Vars d = vars_at(D, ws.at(L.d)), xt = vars_at(D, ws.at(L.xt));
-  const Vars r = vars_at(D, ws.at(L.r));
-  Lane ric = ws.at(L.ric);
-
-  // combo_tol = abs_tol + rel_tol (1 + |(f, h, b)|).
-  float fs = 0.0f;
-  for (int s = 0; s <= D.N; ++s) {
-    for (int j = 0; j < ns; ++j) { float a = fb_f(D, P, s, j); fs += a * a; }
-    for (int i = 0; i < nx; ++i) { float a = fb_h(D, P, s, i); fs += a * a; }
-    for (int c = 0; c < nc; ++c) { float a = P.d[(long long)s * nc + c]; fs += a * a; }
-  }
-  const float combo_tol = o.abs_tol + o.rel_tol * (1.0f + sqrtf(fs));
-
-  // Initialization (impl.h:139-149): y = b - A z0.
-  for (long long k = 0; k < N1 * ns; ++k) xk.z[k] = z0[k];
-  for (long long k = 0; k < N1 * nx; ++k) xk.l[k] = l0[k];
-  for (int s = 0; s <= D.N; ++s)
-    for (int c = 0; c < nc; ++c) {
-      long long k = (long long)s * nc + c;
-      xk.v[k] = v0[k];
-      xk.y[k] = -P.d[k] - fb_gemvA_row(D, P, xk.z, s, c);
-    }
-  float dxn = sqrtf((float)(N1 * ns) + (float)(N1 * nx) + (float)(N1 * nc));
-  const float E0 = fb_pnr_norm(D, o, P, xk);
-  *out.res0 = E0;
-  float itol = fminf(fmaxf(E0, o.inner_tol_min), o.inner_tol_max);
-
-  int newton = 0, prox = 0, eflag = FB_MAXITERATIONS;
-  float Ek = E0, out_res = E0;
-  bool done = false;
-  // out_x is written into the output arrays on exit; `src` picks it.
-  const Vars* src = &xk;
-  for (int k = 0; k < o.max_prox && !done; ++k) {
-    Ek = fb_pnr_norm(D, o, P, xk);
-    bool success = (Ek <= combo_tol) || (dxn <= o.stall_tol);
-    itol = fminf(fmaxf(itol * o.delta, o.inner_tol_min), Ek);
-
-    vars_copy(D, xi, xk);
-    float Eo = 0.0f;
-    bool lfail = false;
-    if (!success)
-      Eo = fb_subproblem(D, o, P, xk, xi, d, xt, r, ric, itol, Ek, newton,
-                         lfail);
-
-    // dx = xi - xk with the margin identity (impl.h:201-203), into d.
-    float s2 = 0.0f;
-    for (long long q = 0; q < N1 * ns; ++q) {
-      d.z[q] = xi.z[q] - xk.z[q];
-      s2 += d.z[q] * d.z[q];
-    }
-    for (long long q = 0; q < N1 * nx; ++q) {
-      d.l[q] = xi.l[q] - xk.l[q];
-      s2 += d.l[q] * d.l[q];
-    }
-    for (long long q = 0; q < N1 * nc; ++q) {
-      d.v[q] = xi.v[q] - xk.v[q];
-      d.y[q] = xi.y[q] - xk.y[q] - P.d[q];
-      s2 += d.v[q] * d.v[q];
-    }
-    dxn = sqrtf(s2);
-
-    if (success) {
-      eflag = FB_SUCCESS; src = &xk; out_res = Ek; done = true;
-    } else if (lfail) {
-      eflag = FB_LINEAR_SOLVER_FAILED; src = &xk; out_res = Ek; done = true;
-    } else if (newton >= o.max_newton) {
-      // Newton budget (impl.h:188-199): the better of xi / xk.
-      src = (Eo < Ek) ? &xi : &xk;
-      out_res = fb_pnr_norm(D, o, P, *src);
-      eflag = FB_MAXITERATIONS; done = true;
-    } else {
-      bool p_inf = false, d_inf = false;
-      if (o.check_feasibility)
-        fb_feasibility(D, P, d, o.infeas_tol, p_inf, d_inf);
-      if (p_inf || d_inf) {
-        eflag = (p_inf && d_inf) ? FB_PRIMAL_DUAL_INFEASIBLE
-                : (p_inf ? FB_PRIMAL_INFEASIBLE : FB_DUAL_INFEASIBLE);
-        src = &d; out_res = Ek; done = true;
-      }
-    }
-    if (!done) {
-      vars_copy(D, xk, xi);  // x(k+1) = xi (impl.h:215-216)
-      prox += 1;
-    }
-  }
-  if (!done) {
-    // Proximal budget exhausted (impl.h:219-223).
-    src = &xk; out_res = Ek; eflag = FB_MAXITERATIONS;
-  }
-  vars_copy(D, out.x, *src);
-  *out.eflag = eflag;
-  *out.res = out_res;
-  *out.newton = newton;
-  *out.prox = prox;
+  const MpcSolveProb prob{D, P, ws.at(L.step)};
+  fbstab_solve_lane(prob, o, z0, l0, v0, out, ws.at(L.xk));
 }

@@ -48,49 +48,10 @@ FB_HD RicLayout ric_layout(const MpcDims& D) {
   return w;
 }
 
-// In place lower Cholesky of the n x n row-major block A (lower triangle
-// read; the strict upper triangle is zeroed).
-FB_DEV void ric_chol(Lane A, int n) {
-  for (int k = 0; k < n; ++k) {
-    float d = sqrtf(A[k * n + k]);
-    for (int r = k; r < n; ++r) A[r * n + k] = A[r * n + k] / d;
-    for (int r = k + 1; r < n; ++r) {
-      float lrk = A[r * n + k];
-      for (int c = k + 1; c <= r; ++c) A[r * n + c] -= lrk * A[c * n + k];
-    }
-  }
-  for (int r = 0; r < n; ++r)
-    for (int c = r + 1; c < n; ++c) A[r * n + c] = 0.0f;
-}
-
-// x <- inv(L) x for lower L (n x n).
-FB_DEV void ric_trsv_lower(Lane L, int n, Lane x) {
-  for (int k = 0; k < n; ++k) {
-    float xk = x[k] / L[k * n + k];
-    x[k] = xk;
-    for (int r = k + 1; r < n; ++r) x[r] -= L[r * n + k] * xk;
-  }
-}
-
-// x <- inv(L') x for lower L (n x n).
-FB_DEV void ric_trsv_upperT(Lane L, int n, Lane x) {
-  for (int k = n - 1; k >= 0; --k) {
-    float xk = x[k] / L[k * n + k];
-    x[k] = xk;
-    for (int r = 0; r < k; ++r) x[r] -= L[k * n + r] * xk;
-  }
-}
-
-// x <- inv(L L') x.
-FB_DEV void ric_cho_solve(Lane L, int n, Lane x) {
-  ric_trsv_lower(L, n, x);
-  ric_trsv_upperT(L, n, x);
-}
-
 // Rows of Y = X inv(M)' for lower M (m x m) and X (rows x m), in place on
 // X: row r of Y is inv(M) applied to row r of X.
 FB_DEV void ric_right_solve_T(Lane X, int rows, Lane M, int m) {
-  for (int r = 0; r < rows; ++r) ric_trsv_lower(M, m, X.at(r * m));
+  for (int r = 0; r < rows; ++r) fb_trsv_lower(M, m, X.at(r * m));
 }
 
 // Stage Hessians of stage i into w.Qh, w.Rh, w.Sh.
@@ -141,12 +102,12 @@ FB_DEV void ric_stage_factor(const MpcDims& D, const MpcProb& P,
   // T = inv(Lf Lf'), column by column.
   for (int j = 0; j < nx; ++j) {
     for (int r = 0; r < nx; ++r) col[r] = (r == j) ? 1.0f : 0.0f;
-    ric_cho_solve(Lf, nx, col);
+    fb_cho_solve(Lf, nx, col);
     for (int r = 0; r < nx; ++r) T[r * nx + j] = col[r];
   }
   // M = chol(Qh + T).
   for (int k = 0; k < nx * nx; ++k) M[k] = Qh[k] + T[k];
-  ric_chol(M, nx);
+  fb_chol(M, nx);
   // SM = Sh inv(M)'.
   for (int k = 0; k < nu * nx; ++k) SM[k] = Sh[k];
   ric_right_solve_T(SM, nu, M, nx);
@@ -157,7 +118,7 @@ FB_DEV void ric_stage_factor(const MpcDims& D, const MpcProb& P,
       for (int k = 0; k < nx; ++k) s += SM[r * nx + k] * SM[c * nx + k];
       SG[r * nu + c] = Rh[r * nu + c] - s;
     }
-  ric_chol(SG, nu);
+  fb_chol(SG, nu);
 }
 
 // r1(i) = rz(i) - [E(i); L(i)]' (rv(i) ./ mus(i)) for every stage
@@ -238,7 +199,7 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
         for (int k = 0; k < nx; ++k) aa += AM[r * nx + k] * AM[c * nx + k];
         Ln[r * nx + c] = ((r == c ? sigma : 0.0f) + pp) + aa;
       }
-    ric_chol(Ln, nx);
+    fb_chol(Ln, nx);
   }
   ric_stage_factor(D, P, o, w, sigma, N);
 
@@ -248,20 +209,20 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
   Lane tx = w.at(o.v0), tu = w.at(o.v1);
   for (int j = 0; j < nx; ++j) th[j] = -rl[j];
   for (int j = 0; j < nx; ++j) h[j] = th[j];
-  ric_cho_solve(w.at(o.Lc), nx, h);
+  fb_cho_solve(w.at(o.Lc), nx, h);
   for (int j = 0; j < nx; ++j) h[j] = h[j] - r1[j];
   for (int i = 0; i < N; ++i) {
     Lane M = w.at(o.M + i * xx), SM = w.at(o.SM + (long long)i * nu * nx);
     Lane SG = w.at(o.SG + (long long)i * nu * nu);
     Lane AM = w.at(o.AM + i * xx), Pm = w.at(o.P + (long long)i * nx * nu);
     for (int j = 0; j < nx; ++j) tx[j] = h[i * nx + j];
-    ric_trsv_lower(M, nx, tx);
+    fb_trsv_lower(M, nx, tx);
     for (int j = 0; j < nu; ++j) {
       float s = 0.0f;
       for (int k = 0; k < nx; ++k) s += SM[j * nx + k] * tx[k];
       tu[j] = s + r1[(long long)i * ns + nx + j];
     }
-    ric_trsv_lower(SG, nu, tu);
+    fb_trsv_lower(SG, nu, tu);
     Lane thn = th.at((long long)(i + 1) * nx), hn = h.at((long long)(i + 1) * nx);
     for (int j = 0; j < nx; ++j) {
       float pt = 0.0f, at = 0.0f;
@@ -270,7 +231,7 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
       thn[j] = (pt + at) - rl[(long long)(i + 1) * nx + j];
       hn[j] = thn[j];
     }
-    ric_cho_solve(w.at(o.Lc + (i + 1) * xx), nx, hn);
+    fb_cho_solve(w.at(o.Lc + (i + 1) * xx), nx, hn);
     for (int j = 0; j < nx; ++j) hn[j] = hn[j] - r1[(long long)(i + 1) * ns + j];
   }
 
@@ -284,13 +245,13 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
     Lane li = dl.at((long long)i * nx);
     // tx = inv(M) h; u = inv(SG)(SM tx + r1u).
     for (int j = 0; j < nx; ++j) tx[j] = h[(long long)i * nx + j];
-    ric_trsv_lower(M, nx, tx);
+    fb_trsv_lower(M, nx, tx);
     for (int j = 0; j < nu; ++j) {
       float s = 0.0f;
       for (int k = 0; k < nx; ++k) s += SM[j * nx + k] * tx[k];
       ui[j] = s + r1[(long long)i * ns + nx + j];
     }
-    ric_trsv_lower(SG, nu, ui);
+    fb_trsv_lower(SG, nu, ui);
     if (i < N) {
       // u = inv(SG')(u + P' l(i+1)).
       Lane Pm = w.at(o.P + (long long)i * nx * nu);
@@ -301,7 +262,7 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
         ui[j] = ui[j] + s;
       }
     }
-    ric_trsv_upperT(SG, nu, ui);
+    fb_trsv_upperT(SG, nu, ui);
     // x = -inv(M')(tx + SM' u [+ AM' l(i+1)]).
     for (int j = 0; j < nx; ++j) {
       float s = 0.0f;
@@ -316,11 +277,11 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
       }
       t2[j] = acc;
     }
-    ric_trsv_upperT(M, nx, t2);
+    fb_trsv_upperT(M, nx, t2);
     for (int j = 0; j < nx; ++j) xi[j] = -t2[j];
     // l = -inv(L L')(theta + x).
     for (int j = 0; j < nx; ++j) t3[j] = th[(long long)i * nx + j] + xi[j];
-    ric_cho_solve(Lf, nx, t3);
+    fb_cho_solve(Lf, nx, t3);
     for (int j = 0; j < nx; ++j) li[j] = -t3[j];
   }
 }

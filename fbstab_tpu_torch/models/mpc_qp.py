@@ -29,6 +29,7 @@ import torch
 from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
 from fbstab_tpu_torch.core.problem import ProblemOps
 from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.device import resolve_device
 from fbstab_tpu_torch.ops.pfb import pfb_weights
 from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
 from fbstab_tpu_torch.options import Options
@@ -63,7 +64,11 @@ def mpc_dims(d: MpcQPData) -> tuple[int, int, int, int]:
 def mpc_qp_data(Q, R, S, q, r, A, B, c, E, L, d, x0,
                 dtype=torch.float64, device=None) -> MpcQPData:
     """Builds batched MpcQPData from array-likes with a common leading batch
-    axis, validating the per-instance shapes (mpc_data.cc:291-363)."""
+    axis, validating the per-instance shapes (mpc_data.cc:291-363). With
+    no `device` the data goes where Q lies if it is a tensor, else on the
+    card (device.resolve_device)."""
+    device = resolve_device(device, like=Q)
+
     def tensor(a):
         if isinstance(a, torch.Tensor):
             return a.to(dtype=dtype, device=device)
@@ -473,7 +478,8 @@ def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options):
 
 
 def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
-                       options: Options = Options(), scaling=None):
+                       options: Options = Options(), scaling=None,
+                       riccati: str = "auto"):
     """Batched MPC solve; every data array and guess has a leading batch
     axis. Returns (Variable or VariableDF, CoreOut).
 
@@ -484,7 +490,17 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
     VariableDF pair and whose `residual` is the double-float-verified
     value in original units.
 
-    scaling: optional precomputed batched MpcScaling for `data`."""
+    scaling: optional precomputed batched MpcScaling for `data`.
+    riccati: "auto" or "scan", both the sequential stage recursion; the
+    JAX package's "assoc" (the associative Riccati scan, kernel K5) is not
+    ported yet (ROADMAP item 13)."""
+    if riccati == "assoc":
+        raise NotImplementedError(
+            "riccati='assoc' needs the associative Riccati scan (kernel K5, "
+            "ROADMAP item 13), which is not ported yet")
+    if riccati not in ("auto", "scan"):
+        raise ValueError(f"riccati must be 'auto', 'scan' or 'assoc', got "
+                         f"{riccati!r}")
     opts = options.validated()
     from fbstab_tpu_torch.models.refine import (
         refine_engaged, refine_solution_mpc)
@@ -529,7 +545,8 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
 
 class FBstabMpc:
     """Allocate-once/solve-many facade for one MPC QP at a time; it runs a
-    batch of one through the batched functions above."""
+    batch of one through the batched functions above. It solves on the
+    card unless given device="cpu"."""
 
     def __init__(self, N: int, nx: int, nu: int, nc: int,
                  dtype=torch.float64, device=None):
@@ -540,7 +557,7 @@ class FBstabMpc:
         self.nl = (N + 1) * nx
         self.nv = (N + 1) * nc
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else None
+        self.device = resolve_device(device)
         self._options = Options.default()
 
     def update_options(self, options: Options) -> None:
@@ -561,6 +578,9 @@ class FBstabMpc:
                 f"{(N, nx, nu, nc)}, got dims {mpc_dims(data)} and batch "
                 f"{data.x0.shape[0]}.")
         dev = data.Q.device
+        if dev.type != self.device.type:
+            raise ValueError(f"FBstabMpc.solve: the data lies on {dev}, "
+                             f"the solver was made for {self.device}.")
         zeros = lambda n: torch.zeros(1, n, dtype=self.dtype, device=dev)
         if x0 is None:
             x0 = Variable(z=zeros(self.nz), l=zeros(self.nl),

@@ -1,14 +1,14 @@
-"""Mixed-precision iterative refinement of float32 MPC solves (counterpart
-of the MPC half of `fbstab_tpu/models/refine.py`).
+"""Mixed-precision iterative refinement of float32 MPC and dense solves
+(counterpart of `fbstab_tpu/models/refine.py`).
 
 Each step evaluates the penalized-FB KKT residual in double-float
-arithmetic (ops/doublefloat.py), solves the correction in float32 through
-the same Newton-step dispatch as the solver (the CUDA kernel K1 on the
-card, `mpc_qp.mpc_newton_step`), and carries the iterate as a double-float
-pair, so neither the float32 residual floor nor the float32
-representation of the point limits the result. The loop exits early per
-chunk of lanes once the original-units residual of every live lane is
-under `Options.refine_target`.
+arithmetic (ops/doublefloat.py), solves the correction in float32 (MPC:
+through the solver's Newton-step dispatch, the CUDA kernel K1 on the card,
+`mpc_qp.mpc_newton_step`; dense: the plain dense step), and carries the
+iterate as a double-float pair, so neither the float32 residual floor nor
+the float32 representation of the point limits the result. The loop exits
+early per chunk of lanes once the original-units residual of every live
+lane is under `Options.refine_target`.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.core.variable import Variable, tree_map
+from fbstab_tpu_torch.models import dense_qp as _dense
+from fbstab_tpu_torch.models.dense_qp import DenseQPData
 from fbstab_tpu_torch.models.mpc_qp import (
     MpcQPData,
     mpc_dims,
@@ -60,15 +62,6 @@ class VariableDF(NamedTuple):
                         y=up(self.y))
 
 
-def _tree_map(f, *trees):
-    """Maps f over matching leaves of nested tuples of tensors."""
-    t0 = trees[0]
-    if not isinstance(t0, tuple):
-        return f(*trees)
-    mapped = (_tree_map(f, *ch) for ch in zip(*trees))
-    return type(t0)(*mapped) if hasattr(t0, "_fields") else tuple(mapped)
-
-
 def _stages(a, N1, n):
     """(B, N1*n) -> (B, N1, n)."""
     return a.reshape(a.shape[0], N1, n)
@@ -80,7 +73,7 @@ def _flat(p, N1xn):
 
 
 def _cat1(p, q):
-    return _tree_map(lambda a, b: torch.cat([a, b], 1), p, q)
+    return tree_map(lambda a, b: torch.cat([a, b], 1), p, q)
 
 
 def _const(x: float, like):
@@ -96,10 +89,10 @@ def _mpc_kkt_residual_df(d: MpcQPData, zx, zu, l, v, y, alpha):
     hu = df_add(df_matvec(d.S, zx), df_matvec(d.R, zu))
 
     # G'l: x(i) = -l(i) + A(i)' l(i+1); u(i) = B(i)' l(i+1).
-    l_next = _tree_map(lambda a: a[:, 1:], l)
+    l_next = tree_map(lambda a: a[:, 1:], l)
     atl = df_matvec_T(d.A, l_next)
     btl = df_matvec_T(d.B, l_next)
-    zpad = lambda p: _tree_map(
+    zpad = lambda p: tree_map(
         lambda a: torch.cat([a, torch.zeros_like(a[:, :1])], 1), p)
     gx = df_add(df_neg(l), zpad(atl))
     gu = zpad(btl)
@@ -112,10 +105,10 @@ def _mpc_kkt_residual_df(d: MpcQPData, zx, zu, l, v, y, alpha):
 
     # rl = h - G z with h = -(x0, c), (Gz)(0) = -x(0),
     # (Gz)(i) = A x(i-1) + B u(i-1) - x(i).
-    zx_head = _tree_map(lambda a: a[:, :1], zx)
-    zx_prev = _tree_map(lambda a: a[:, :-1], zx)
-    zu_prev = _tree_map(lambda a: a[:, :-1], zu)
-    zx_next = _tree_map(lambda a: a[:, 1:], zx)
+    zx_head = tree_map(lambda a: a[:, :1], zx)
+    zx_prev = tree_map(lambda a: a[:, :-1], zx)
+    zu_prev = tree_map(lambda a: a[:, :-1], zu)
+    zx_next = tree_map(lambda a: a[:, 1:], zx)
     g_tail = df_sub(df_add(df_matvec(d.A, zx_prev),
                            df_matvec(d.B, zu_prev)), zx_next)
     gz = _cat1(df_neg(zx_head), g_tail)
@@ -157,11 +150,11 @@ def _pnr_df_at_mpc(data: MpcQPData, sol, alpha):
     as_pair = lambda a: a if isinstance(a, tuple) else df(a)
     z = as_pair(sol.z)
     B = z[0].shape[0]
-    zst = _tree_map(lambda a: a.reshape(B, N1, nx + nu), z)
-    zx = _tree_map(lambda a: a[..., :nx], zst)
-    zu = _tree_map(lambda a: a[..., nx:], zst)
-    l = _tree_map(lambda a: a.reshape(B, N1, nx), as_pair(sol.l))
-    v = _tree_map(lambda a: a.reshape(B, N1, nc), as_pair(sol.v))
+    zst = tree_map(lambda a: a.reshape(B, N1, nx + nu), z)
+    zx = tree_map(lambda a: a[..., :nx], zst)
+    zu = tree_map(lambda a: a[..., nx:], zst)
+    l = tree_map(lambda a: a.reshape(B, N1, nx), as_pair(sol.l))
+    v = tree_map(lambda a: a.reshape(B, N1, nc), as_pair(sol.v))
     y = _margin(data, zx, zu)
     return _mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha)
 
@@ -233,7 +226,7 @@ def _walk_update(B, live, ok, res_p, res_best, since, t, sig,
 
     def sel(m):
         def pick(pn, po):
-            return _tree_map(lambda a, b: torch.where(
+            return tree_map(lambda a, b: torch.where(
                 m.reshape((B,) + (1,) * (a.ndim - 1)), a, b), pn, po)
         return pick
 
@@ -252,8 +245,8 @@ def _walk_update(B, live, ok, res_p, res_best, since, t, sig,
     return cur, bst, rhs_c, rhs_b, res_best, live, t, sig, since
 
 
-def _refine_step(data, carry, opts: Options, scal):
-    """One refinement iteration on every lane of `carry`."""
+def _refine_mpc_step(data, carry, opts: Options, scal):
+    """One MPC refinement iteration on every lane of `carry`."""
     N, nx, nu, nc = mpc_dims(data)
     N1 = N + 1
     cur, bst, rhs_c, rhs_b, res_best, live, t, sig, since = carry
@@ -287,7 +280,7 @@ def _refine_step(data, carry, opts: Options, scal):
 
 
 def _take(tree, idx):
-    return _tree_map(lambda a: a.index_select(0, idx), tree)
+    return tree_map(lambda a: a.index_select(0, idx), tree)
 
 
 def _put(tree, idx, sub):
@@ -295,23 +288,22 @@ def _put(tree, idx, sub):
         out = a.clone()
         out[idx] = s
         return out
-    return _tree_map(put, tree, sub)
+    return tree_map(put, tree, sub)
 
 
-def _refine_mpc_loop(data: MpcQPData, state0, rhs0, res0, options: Options,
-                     good, scal=None, chunk: int | None = None):
+def _refine_loop(step, data, state0, rhs0, res0, options: Options, good,
+                 scal, chunk: int | None):
     """Early-exit refinement loop in loop coordinates (the Ruiz-scaled
-    problem when `scal` is given), with the exit test in original units.
+    problem when `scal` is given), with the exit test in original units;
+    step(data, carry, opts, scal) is one iteration of the QP class.
 
     chunk: lanes exit in consecutive chunks of this size (None: one
     batch-global exit). A chunk keeps stepping while i < refine_steps and
     any of its live lanes is above the target; its lanes freeze once it
     stops, exactly as the JAX package's per-chunk while loops do. Only the
     lanes of running chunks are computed.
-    Returns (VariableDF in loop coordinates, res, per-lane steps)."""
+    Returns (best state in loop coordinates, res, per-lane steps)."""
     opts = options.validated()
-    N, nx, nu, nc = mpc_dims(data)
-    N1 = N + 1
     B = res0.shape[0]
     dtype, dev = res0.dtype, res0.device
     sigma = opts.refine_sigma or opts.sigma0
@@ -332,21 +324,31 @@ def _refine_mpc_loop(data: MpcQPData, state0, rhs0, res0, options: Options,
         steps = steps + run_chunk.to(torch.int32)
         run = run_chunk.repeat_interleave(ck)
         if bool(run.all()):
-            carry = _refine_step(data, carry, opts, scal)
+            carry = step(data, carry, opts, scal)
         else:
             idx = run.nonzero()[:, 0]
             sub_scal = None if scal is None else _take(scal, idx)
-            sub = _refine_step(_take(data, idx), _take(carry, idx), opts,
-                               sub_scal)
+            sub = step(_take(data, idx), _take(carry, idx), opts, sub_scal)
             carry = _put(carry, idx, sub)
+    return carry[1], carry[4], steps.repeat_interleave(ck)
 
-    zx, zu, l, v, y = carry[1]
+
+def _refine_mpc_loop(data: MpcQPData, state0, rhs0, res0, options: Options,
+                     good, scal=None, chunk: int | None = None):
+    """The MPC refinement loop (_refine_loop). Returns (VariableDF in loop
+    coordinates, res, per-lane steps)."""
+    N, nx, nu, nc = mpc_dims(data)
+    N1 = N + 1
+    B = res0.shape[0]
+    (zx, zu, l, v, y), res, steps = _refine_loop(
+        _refine_mpc_step, data, state0, rhs0, res0, options, good, scal,
+        chunk)
     zshape = (B, N1 * (nx + nu))
     refined = VariableDF(
         z=(torch.cat([zx[0], zu[0]], -1).reshape(zshape),
            torch.cat([zx[1], zu[1]], -1).reshape(zshape)),
         l=_flat(l, N1 * nx), v=_flat(v, N1 * nc), y=_flat(y, N1 * nc))
-    return refined, carry[4], steps.repeat_interleave(ck)
+    return refined, res, steps
 
 
 def _splice_df(refined: VariableDF, x: Variable, good) -> VariableDF:
@@ -427,4 +429,178 @@ def refine_solution_mpc(data: MpcQPData, x: Variable, core,
             lambda ck: _refine_mpc_loop(data, state0, rhs0, res0, opts,
                                         good, None, ck), B, rows=rows)
     res = _pnr_df_at_mpc(data, refined, opts.alpha)
+    return _finish_refine(refined, x, core, good, res0, res, steps)
+
+
+# ------------------------------------------------------------------
+# Dense QP refinement (same scheme; explicit-matrix compensated matvecs,
+# corrections through the plain dense Newton step of models/dense_qp.py,
+# which the JAX package also leaves to XLA rather than a kernel).
+# ------------------------------------------------------------------
+
+def _dense_kkt_residual_df(d: DenseQPData, z, l, v, y, alpha):
+    """Penalized-FB KKT residual blocks in double-float (full_residual.cc:
+    49-74 at xbar = x): rz = f + Hz + G'l + A'v, rl = h - Gz,
+    rv = pfb(y, v)."""
+    rz = df_add(df_add(df(d.f), df_matvec(d.H, z)),
+                df_add(df_matvec_T(d.G, l), df_matvec_T(d.A, v)))
+    rl = df_sub(df(d.h), df_matvec(d.G, z))
+    s = df_sqrt(df_add(df_mul(y, y), df_mul(v, v)))
+    fb = df_sub(df_add(y, v), s)
+    pen = df_mul(df_max0(y), df_max0(v))
+    a = _const(alpha, d.f)
+    rv = df_add(df_mul_f(fb, a), df_mul_f(pen, 1.0 - a))
+    return rz, rl, rv
+
+
+def _dense_pnr_norm_df(d: DenseQPData, z, l, v, y, alpha):
+    """Penalized natural residual norm from the double-float point."""
+    rz, rl, _ = _dense_kkt_residual_df(d, z, l, v, y, alpha)
+    nr = df_min(y, v)
+    pen = df_mul(df_max0(y), df_max0(v))
+    a = _const(alpha, d.f)
+    rv = df_add(df_mul_f(nr, a), df_mul_f(pen, 1.0 - a))
+    sq = lambda p: (df_to(p) ** 2).sum(-1)
+    return torch.sqrt(sq(rz) + sq(rl) + sq(rv))
+
+
+def _dense_margin(d: DenseQPData, z):
+    """y = b - A z in double-float."""
+    return df_sub(df(d.b), df_matvec(d.A, z))
+
+
+def _dense_correction(d: DenseQPData, z, l, v, y, rz, rl, rv, sigma, alpha):
+    """One float32 correction solve from the (single-float) KKT blocks:
+    returns (dz, dl, dv, ok)."""
+    xx = Variable(z=z, l=l, v=v, y=y)
+    fact = _dense._factor(d, xx, xx, sigma, alpha)
+    dx = _dense._newton_solve(d, fact, -rz, -rl, -rv)
+    return dx.z, dx.l, dx.v, _dense._factor_ok(fact)
+
+
+def refine_dense_batch(data: DenseQPData, x: Variable,
+                       options: Options = Options(), steps: int = 3):
+    """Polishes a batched float32 dense solution for a fixed number of
+    steps (no walk window, no early exit). Returns (VariableDF refined
+    point, (steps + 1, B) penalized natural residual history)."""
+    opts = options.validated()
+    alpha = opts.alpha
+    z, l, v = df(x.z), df(x.l), df(x.v)
+    y = _dense_margin(data, z)
+    history = [_dense_pnr_norm_df(data, z, l, v, y, alpha)]
+    for _ in range(steps):
+        rz, rl, rv = _dense_kkt_residual_df(data, z, l, v, y, alpha)
+        dz, dl, dv, ok = _dense_correction(
+            data, df_to(z), df_to(l), df_to(v), df_to(y), df_to(rz),
+            df_to(rl), df_to(rv), opts.sigma0, alpha)
+        guard = lambda c: torch.where(ok[:, None], c, torch.zeros_like(c))
+        z = df_add(z, df(guard(dz)))
+        l = df_add(l, df(guard(dl)))
+        v = df_max0(df_add(v, df(guard(dv))))
+        y = _dense_margin(data, z)
+        history.append(_dense_pnr_norm_df(data, z, l, v, y, alpha))
+    return VariableDF(z=z, l=l, v=v, y=y), torch.stack(history)
+
+
+def _dense_norms(alpha, scal, z, l, v, y, rz, rl):
+    """Original-units penalized natural residual norm from dense
+    loop-coordinate double-float blocks (see _mpc_norms)."""
+    if scal is not None:
+        from fbstab_tpu_torch.models.scaling import df_scale
+        kc2 = scal.kc[:, None]
+        v = df_scale(v, scal.de / kc2)
+        y = df_scale(y, 1.0 / scal.de)
+        rz = df_scale(rz, 1.0 / (kc2 * scal.dz))
+        rl = df_scale(rl, 1.0 / scal.dl)
+    a = _const(alpha, z[0])
+    nr = df_min(y, v)
+    pen = df_mul(df_max0(y), df_max0(v))
+    rv = df_add(df_mul_f(nr, a), df_mul_f(pen, 1.0 - a))
+    sq = lambda p: (df_to(p) ** 2).sum(-1)
+    return torch.sqrt(sq(rz) + sq(rl) + sq(rv))
+
+
+def _dense_refine_entry(data: DenseQPData, x: Variable, options: Options,
+                        scal=None):
+    """Loop-entry double-float state, KKT blocks and original-units
+    residual for the dense refinement loop."""
+    alpha = options.validated().alpha
+    z0, l0, v0 = df(x.z), df(x.l), df(x.v)
+    y0 = _dense_margin(data, z0)
+    blocks0 = _dense_kkt_residual_df(data, z0, l0, v0, y0, alpha)
+    res0 = _dense_norms(alpha, scal, z0, l0, v0, y0, *blocks0[:2])
+    return (z0, l0, v0, y0), blocks0, res0
+
+
+def _refine_dense_step(data: DenseQPData, carry, opts: Options, scal):
+    """One dense refinement iteration on every lane of `carry`."""
+    cur, bst, rhs_c, rhs_b, res_best, live, t, sig, since = carry
+    z, l, v, y = cur
+    B = z[0].shape[0]
+    rz, rl, rv = rhs_c
+    dz, dl, dv, ok = _dense_correction(
+        data, df_to(z), df_to(l), df_to(v), df_to(y), rz, rl, rv, sig,
+        opts.alpha)
+    tm = (t * (live & ok).to(z[0].dtype))[:, None]
+    z_p = df_add(z, df(tm * dz))
+    l_p = df_add(l, df(tm * dl))
+    v_p = df_max0(df_add(v, df(tm * dv)))
+    y_p = _dense_margin(data, z_p)
+    blocks_p = _dense_kkt_residual_df(data, z_p, l_p, v_p, y_p, opts.alpha)
+    res_p = _dense_norms(opts.alpha, scal, z_p, l_p, v_p, y_p,
+                         *blocks_p[:2])
+    rhs_p = tuple(df_to(b) for b in blocks_p)
+    return _walk_update(B, live, ok, res_p, res_best, since, t, sig,
+                        (z_p, l_p, v_p, y_p), cur, bst, rhs_p, rhs_c, rhs_b)
+
+
+def _refine_dense_loop(data: DenseQPData, state0, rhs0, res0,
+                       options: Options, good, scal=None,
+                       chunk: int | None = None):
+    """The dense refinement loop (_refine_loop). Returns (VariableDF in
+    loop coordinates, res, per-lane steps)."""
+    (z, l, v, y), res, steps = _refine_loop(
+        _refine_dense_step, data, state0, rhs0, res0, options, good, scal,
+        chunk)
+    return VariableDF(z=z, l=l, v=v, y=y), res, steps
+
+
+def _pnr_df_at_dense(data: DenseQPData, sol, alpha):
+    """Double-float penalized natural residual at a point in original
+    coordinates (VariableDF pairs or a plain Variable)."""
+    as_pair = lambda a: a if isinstance(a, tuple) else df(a)
+    z = as_pair(sol.z)
+    y = _dense_margin(data, z)
+    return _dense_pnr_norm_df(data, z, as_pair(sol.l), as_pair(sol.v), y,
+                              alpha)
+
+
+def refine_solution_dense(data: DenseQPData, x: Variable, core,
+                          options: Options, scal=None):
+    """Dense analog of refine_solution_mpc (per-chunk exit over chunks of
+    REFINE_CHUNK_LARGE lanes)."""
+    opts = options.validated()
+    good = core.eflag == int(ExitFlag.SUCCESS)
+    B = x.z.shape[0]
+    if opts.equilibrate:
+        from fbstab_tpu_torch.models.scaling import (
+            apply_dense_scaling, ruiz_dense_scaling, scale_dense_variable,
+            unscale_dense_variable_df)
+        if scal is None:
+            scal = ruiz_dense_scaling(data)
+        sdata = apply_dense_scaling(data, scal)
+        xs = scale_dense_variable(x, scal)
+        state0, blocks0, res0 = _dense_refine_entry(sdata, xs, opts, scal)
+        rhs0 = tuple(df_to(b) for b in blocks0)
+        refined_s, res, steps = _chunked_refine(
+            lambda ck: _refine_dense_loop(sdata, state0, rhs0, res0, opts,
+                                          good, scal, ck), B)
+        refined = unscale_dense_variable_df(refined_s, scal)
+    else:
+        state0, blocks0, res0 = _dense_refine_entry(data, x, opts)
+        rhs0 = tuple(df_to(b) for b in blocks0)
+        refined, res, steps = _chunked_refine(
+            lambda ck: _refine_dense_loop(data, state0, rhs0, res0, opts,
+                                          good, None, ck), B)
+    res = _pnr_df_at_dense(data, refined, opts.alpha)
     return _finish_refine(refined, x, core, good, res0, res, steps)

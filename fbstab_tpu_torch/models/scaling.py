@@ -1,5 +1,5 @@
-"""Ruiz equilibration of batched MPC data for float32 conditioning
-(counterpart of the MPC half of `fbstab_tpu/models/scaling.py`).
+"""Ruiz equilibration of batched MPC and dense data for float32
+conditioning (counterpart of `fbstab_tpu/models/scaling.py`).
 
 A per-stage diagonal scaling x(s) = Dx_s x'(s), u(s) = Du_s u'(s), with
 the dynamics row block s scaled by Dx_s^{-1}, keeps the Riccati structure
@@ -29,6 +29,7 @@ from fbstab_tpu_torch.core.residuals import (
     residual_norm,
 )
 from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.models.dense_qp import DENSE_OPS, DenseQPData
 from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, MpcQPData
 from fbstab_tpu_torch.solver_out import ExitFlag
 
@@ -160,6 +161,93 @@ def unscale_mpc_variable_df(xdf, s: MpcScaling):
                      v=df_scale(xdf.v, vf), y=df_scale(xdf.y, 1.0 / de))
 
 
+# ------------------------------------------------------------------
+# Dense QP equilibration (Ruiz on the KKT blocks; G rows scale freely):
+# z = dz z', l = dl l' / kc, v = de v' / kc, y = y' / de.
+# ------------------------------------------------------------------
+
+class DenseScaling(NamedTuple):
+    """Batched dense diagonal scalings."""
+
+    dz: torch.Tensor   # (B, n)
+    dl: torch.Tensor   # (B, nl)
+    de: torch.Tensor   # (B, q)
+    kc: torch.Tensor   # (B,) cost scaling
+
+
+def _scaled_blocks_dense(d, dz, dl, de):
+    Hs = dz[:, :, None] * d.H * dz[:, None, :]
+    Gs = dl[:, :, None] * d.G * dz[:, None, :]
+    As = de[:, :, None] * d.A * dz[:, None, :]
+    return Hs, Gs, As
+
+
+def ruiz_dense_scaling(d: DenseQPData, iters: int = RUIZ_ITERS
+                       ) -> DenseScaling:
+    """The Ruiz diagonals of every lane of a batched DenseQPData, rounded
+    to powers of two, then a scalar cost scaling kc per lane."""
+    B, n = d.H.shape[0], d.H.shape[-1]
+    nl, nv = d.G.shape[-2], d.A.shape[-2]
+    kw = dict(dtype=d.H.dtype, device=d.H.device)
+    dz = torch.ones(B, n, **kw)
+    dl = torch.ones(B, nl, **kw)
+    de = torch.ones(B, nv, **kw)
+    amax = lambda a, ax: a.abs().amax(ax)
+
+    for _ in range(iters):
+        Hs, Gs, As = _scaled_blocks_dense(d, dz, dl, de)
+        colz = amax(Hs, -2)
+        if nl > 0:
+            colz = torch.maximum(colz, amax(Gs, -2))
+        colz = torch.maximum(colz, amax(As, -2))
+        rowl = amax(Gs, -1) if nl > 0 else torch.zeros(B, 0, **kw)
+        rowe = torch.maximum(amax(As, -1), (de * d.b).abs())
+        upd = lambda cur, nrm: cur * torch.rsqrt(_safe(nrm))
+        dz, dl, de = upd(dz, colz), upd(dl, rowl), upd(de, rowe)
+
+    dz, dl, de = _pow2(dz), _pow2(dl), _pow2(de)
+
+    Hs, _, _ = _scaled_blocks_dense(d, dz, dl, de)
+    lane_max = lambda a: a.abs().reshape(B, -1).amax(-1)
+    cost_mag = torch.maximum(lane_max(Hs), lane_max(dz * d.f))
+    kc = _pow2(1.0 / torch.clamp(_safe(cost_mag), 1e-8, 1e8))
+    return DenseScaling(dz=dz, dl=dl, de=de, kc=kc)
+
+
+def apply_dense_scaling(d: DenseQPData, s: DenseScaling) -> DenseQPData:
+    """Applies the scaling diagonals to the data (exact pow2 transform)."""
+    Hs, Gs, As = _scaled_blocks_dense(d, s.dz, s.dl, s.de)
+    kc = s.kc[:, None]
+    return DenseQPData(H=kc[..., None] * Hs, f=kc * s.dz * d.f, G=Gs,
+                       h=s.dl * d.h, A=As, b=s.de * d.b)
+
+
+def dense_scale_factors(s: DenseScaling):
+    """Flat per-coordinate unscale multipliers (dz, lf, vf, de):
+    z = dz z', l = lf l', v = vf v', y = y'/de."""
+    kc = s.kc[:, None]
+    return s.dz, s.dl / kc, s.de / kc, s.de
+
+
+def scale_dense_variable(x: Variable, s: DenseScaling) -> Variable:
+    """Original -> scaled coordinates (for warmstarts)."""
+    dzf, lf, vf, de = dense_scale_factors(s)
+    return Variable(z=x.z / dzf, l=x.l / lf, v=x.v / vf, y=x.y * de)
+
+
+def unscale_dense_variable(x: Variable, s: DenseScaling) -> Variable:
+    """Scaled -> original coordinates."""
+    dzf, lf, vf, de = dense_scale_factors(s)
+    return Variable(z=x.z * dzf, l=x.l * lf, v=x.v * vf, y=x.y / de)
+
+
+def unscale_dense_variable_df(xdf, s: DenseScaling):
+    """Exact unscaling of a refined VariableDF (pow2 diagonals)."""
+    dzf, lf, vf, de = dense_scale_factors(s)
+    return type(xdf)(z=df_scale(xdf.z, dzf), l=df_scale(xdf.l, lf),
+                     v=df_scale(xdf.v, vf), y=df_scale(xdf.y, 1.0 / de))
+
+
 def scaling_engaged(options, dtype) -> bool:
     return bool(options.equilibrate) and dtype == torch.float32
 
@@ -187,6 +275,26 @@ def solve_scaled_mpc(raw_solve, data, z0, l0, v0, options, scal=None,
     if skip_residual_rewrite:
         return x, core
     res = residual_norm(penalized_natural_residual(MPC_OPS, data, x,
+                                                   opts.alpha))
+    return x, core._replace(residual=res, raw_residual=res)
+
+
+def solve_scaled_dense(raw_solve, data, z0, l0, v0, options, scal=None,
+                       skip_residual_rewrite=False):
+    """Dense analog of solve_scaled_mpc."""
+    opts = options.validated()
+    if not scaling_engaged(opts, z0.dtype):
+        return raw_solve(data, z0, l0, v0)
+    if scal is None:
+        scal = ruiz_dense_scaling(data)
+    sdata = apply_dense_scaling(data, scal)
+    g = scale_dense_variable(
+        Variable(z=z0, l=l0, v=v0, y=torch.zeros_like(v0)), scal)
+    x, core = raw_solve(sdata, g.z, g.l, g.v)
+    x = unscale_dense_variable(x, scal)
+    if skip_residual_rewrite:
+        return x, core
+    res = residual_norm(penalized_natural_residual(DENSE_OPS, data, x,
                                                    opts.alpha))
     return x, core._replace(residual=res, raw_residual=res)
 

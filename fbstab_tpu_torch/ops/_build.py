@@ -1,6 +1,7 @@
 """Builds the CUDA kernels at first use and loads them with ctypes.
 
-`load_library()` compiles every `csrc/*.cu` with nvcc into one shared
+`load_library()` compiles every `csrc/*.cu` with nvcc, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), under `fbstab_tpu_torch/_build/`, keyed by a hash of the sources
 and flags; a later call with the same sources reuses it. Nothing is built
@@ -22,13 +23,15 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 
 class SolveOpts(ctypes.Structure):
-    """Mirror of `struct SolveOpts` in csrc/mpc_solve.cuh (field order and
-    types must match)."""
+    """Mirror of `struct SolveOpts` in csrc/fbstab_solve.cuh (field order
+    and types must match)."""
 
     _fields_ = [(n, ctypes.c_float) for n in (
         "sigma", "alpha", "om_alpha", "beta", "eta", "delta",
@@ -56,7 +59,7 @@ def _sources():
 def library_path() -> Path:
     """Where the library for the current sources lives."""
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -66,16 +69,35 @@ def library_path() -> Path:
 def _compile(out: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
-    os.replace(tmp, out)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        objs = [tmp / (p.stem + ".o") for p in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for p, o in zip(cu, objs)]
+        logs, failed = [], []
+        for p, proc in zip(cu, procs):
+            so, se = proc.communicate()
+            logs.append(f"== {p.name}\n{se}{so}")
+            if proc.returncode != 0:
+                failed.append(f"{p.name} ({proc.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "".join(logs))
+        lib = tmp / "lib.so"
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(lib),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}{link.stdout}")
+        out.with_suffix(".log").write_text("".join(logs) + link.stderr
+                                           + link.stdout)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -88,6 +110,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_solve_ws_floats.restype = ctypes.c_longlong
     lib.fb_mpc_solve.argtypes = [I, I, I, I, I, SolveOpts] + [P] * 25 + [P]
     lib.fb_mpc_solve.restype = I
+    lib.fb_dense_ws_floats.argtypes = [I, I, I]
+    lib.fb_dense_ws_floats.restype = ctypes.c_longlong
+    lib.fb_dense_solve.argtypes = [I, I, I, I, SolveOpts] + [P] * 19 + [P]
+    lib.fb_dense_solve.restype = I
     return lib
 
 

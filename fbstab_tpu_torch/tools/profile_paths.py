@@ -1,0 +1,77 @@
+"""Device busy and idle share of the port's main paths on one GPU.
+
+    python3 -m fbstab_tpu_torch.tools.profile_paths
+
+For each path, all under Options.single_precision() — the one-shot MPC
+solve and the adaptive MPC headline (phase1 = 16, P2 = B // 8) at
+B = 8192 on the headline batch, and the dense solve at B = 4096, n = 32,
+q = 64 — one warm call, one timed call (host clock around the
+synchronized call), then one call under torch.profiler. Prints one JSON
+line per path: the plain wall time, the profiled wall time, the device
+time summed over the kernels that ran (one stream, so they do not
+overlap), the idle share 1 - device / profiled wall, the number of
+kernels and the five with the most device time. The profiler's own host
+overhead inflates the profiled wall time of launch-heavy stages, so the
+idle share is an upper bound.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from fbstab_tpu_torch import workloads as wl
+
+
+def wall_ms(fn):
+    return wl.timed(fn)[1]
+
+
+def profile_path(name, fn):
+    fn()
+    plain = wall_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = wall_ms(fn)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    busy = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(json.dumps(dict(
+        path=name, wall_ms=plain, profiled_wall_ms=prof_wall,
+        device_ms=busy if kernels else None,
+        idle_share=1.0 - busy / prof_wall if kernels else None,
+        kernels=len(kernels),
+        top=[(k[:60], round(v / 1e3, 3)) for k, v in top])), flush=True)
+
+
+def main():
+    from fbstab_tpu_torch.models.dense_qp import solve_dense_qp_batch
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.parallel.adaptive import (
+        solve_mpc_qp_batch_adaptive_device)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(wl.card())
+    opts = Options.single_precision()
+    mpc = wl.build_batch(8192, **wl.HEADLINE, device=dev)
+    mg = wl.zeros_guess(mpc)
+    dense = wl.build_dense(4096, wl.DENSE["n"], wl.DENSE["q"], 0, dev)
+    dg = wl.dense_zeros(dense)
+    profile_path("mpc_one_shot",
+                 lambda: solve_mpc_qp_batch(mpc, *mg, opts))
+    profile_path("mpc_adaptive", lambda: solve_mpc_qp_batch_adaptive_device(
+        mpc, *mg, opts, phase1_newton_iters=16, phase2_size=1024))
+    profile_path("dense", lambda: solve_dense_qp_batch(dense, *dg, opts))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,195 @@
+"""The batches the port is measured and tested on, their float64 host
+residuals, and timing helpers for the card.
+
+`chip_smoke.py`, the measurement scripts under `fbstab_tpu_torch/tools/`
+and the CPU tests all take their inputs from here. The generators are
+plain numpy from a seed (the JAX package's `bench.build_batch` and
+`bench.build_dense_batch` problems), so the same arrays can be fed to
+any implementation; the residuals are plain numpy in float64, the check
+of the 1e-6 contract.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+# bench.py's headline MPC shape and its dense shape (BASELINE config 3).
+HEADLINE = dict(N=30, nx=8, nu=3, nc=6)
+DENSE = dict(n=32, q=64)
+
+
+def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
+    """The scenario-MPC batch as numpy float64 arrays: a shared stable
+    plant, varied x0 and cost offsets, input box |u| <= 1. The shared
+    leaves are read-only broadcast views."""
+    rng = np.random.default_rng(seed)
+    A1 = np.eye(nx) + 0.08 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    B1 = 0.2 * rng.standard_normal((nx, nu))
+    L1 = np.zeros((nc, nu))
+    L1[:nu] = np.eye(nu)
+    L1[nu:2 * nu] = -np.eye(nu)
+    tile = lambda M, n: np.broadcast_to(M, (B, n) + M.shape)
+    Np1 = N + 1
+    return dict(
+        Q=tile(np.eye(nx), Np1), R=tile(0.1 * np.eye(nu), Np1),
+        S=tile(np.zeros((nu, nx)), Np1),
+        q=0.1 * rng.standard_normal((B, Np1, nx)), r=np.zeros((B, Np1, nu)),
+        A=tile(A1, N), B=tile(B1, N), c=np.zeros((B, N, nx)),
+        E=tile(np.zeros((nc, nx)), Np1), L=tile(L1, Np1),
+        d=tile(-np.ones(nc), Np1), x0=rng.standard_normal((B, nx)))
+
+
+def dense_arrays(B, n=32, q=64, nl=0, seed=1):
+    """Random strictly convex dense QPs as numpy float64 arrays (seed 1 is
+    bench.build_dense_batch's batch). With nl > 0, Gaussian equality rows
+    G z = h (entries of variance 1/n) through a small point z_f that the
+    inequality rows keep feasible."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, n, n))
+    H = M @ np.transpose(M, (0, 2, 1)) / n + 2.0 * np.eye(n)
+    f = rng.standard_normal((B, n))
+    A = rng.standard_normal((B, q, n))
+    b = np.abs(rng.standard_normal((B, q))) + 0.5      # origin feasible
+    G, h = np.zeros((B, 0, n)), np.zeros((B, 0))
+    if nl > 0:
+        G = rng.standard_normal((B, nl, n)) / np.sqrt(n)
+        zf = 0.05 * rng.standard_normal((B, n, 1))
+        h = (G @ zf)[..., 0]
+        b = b + np.abs(A @ zf)[..., 0]
+    return dict(H=H, f=f, G=G, h=h, A=A, b=b)
+
+
+def build_batch(B, N, nx, nu, nc, device, dtype=torch.float32):
+    """The headline batch as MpcQPData on `device`."""
+    from fbstab_tpu_torch.models.mpc_qp import mpc_qp_data
+    return mpc_qp_data(**headline_arrays(B, N, nx, nu, nc), dtype=dtype,
+                       device=device)
+
+
+def build_dense(B, n, q, nl, device, dtype=torch.float32):
+    """The dense batch as DenseQPData on `device`."""
+    from fbstab_tpu_torch.models.dense_qp import dense_qp_data
+    return dense_qp_data(**dense_arrays(B, n, q, nl), dtype=dtype,
+                         device=device)
+
+
+def zeros_guess(data):
+    """Zero (z, l, v) guesses for an MPC batch, in its dtype and device."""
+    from fbstab_tpu_torch.models.mpc_qp import mpc_dims
+    N, nx, nu, nc = mpc_dims(data)
+    B = data.x0.shape[0]
+    kw = dict(dtype=data.x0.dtype, device=data.x0.device)
+    return (torch.zeros(B, (N + 1) * (nx + nu), **kw),
+            torch.zeros(B, (N + 1) * nx, **kw),
+            torch.zeros(B, (N + 1) * nc, **kw))
+
+
+def dense_zeros(data):
+    """Zero (z, l, v) guesses for a dense batch."""
+    B, kw = data.H.shape[0], dict(dtype=data.H.dtype, device=data.H.device)
+    n, q, nl = data.H.shape[-1], data.A.shape[-2], data.G.shape[-2]
+    return (torch.zeros(B, n, **kw), torch.zeros(B, nl, **kw),
+            torch.zeros(B, q, **kw))
+
+
+# ------------------------------------------------------------------
+# Host float64 residuals: the penalized natural residual with the margin
+# rebuilt in float64 (y = b - A z), per lane.
+# ------------------------------------------------------------------
+
+def _host(sol):
+    x = sol.to_float64() if hasattr(sol, "to_float64") else sol
+    return (x.z.double().cpu().numpy(), x.l.double().cpu().numpy(),
+            x.v.double().cpu().numpy())
+
+
+def _pnr_rv(y, v, alpha):
+    return (alpha * np.minimum(y, v)
+            + (1 - alpha) * np.maximum(0, y) * np.maximum(0, v))
+
+
+def mpc_f64_residual(data, sol, alpha):
+    """bench.f64_pnr_np's formula on the port's MpcQPData and solution."""
+    d = {k: getattr(data, k).double().cpu().numpy() for k in data._fields}
+    z, l, v = _host(sol)
+    B, N1 = z.shape[0], d["Q"].shape[1]
+    nx, nu, nc = d["Q"].shape[-1], d["R"].shape[-1], d["E"].shape[2]
+    zs = z.reshape(B, N1, nx + nu)
+    zx, zu = zs[..., :nx], zs[..., nx:]
+    ls = l.reshape(B, N1, nx)
+    vs = v.reshape(B, N1, nc)
+    hx = (np.einsum("bsij,bsj->bsi", d["Q"], zx)
+          + np.einsum("bsji,bsj->bsi", d["S"], zu))
+    hu = (np.einsum("bsij,bsj->bsi", d["S"], zx)
+          + np.einsum("bsij,bsj->bsi", d["R"], zu))
+    atl = np.einsum("bsji,bsj->bsi", d["A"], ls[:, 1:])
+    btl = np.einsum("bsji,bsj->bsi", d["B"], ls[:, 1:])
+    gx = -ls + np.concatenate([atl, np.zeros((B, 1, nx))], 1)
+    gu = np.concatenate([btl, np.zeros((B, 1, nu))], 1)
+    ax = np.einsum("bsci,bsc->bsi", d["E"], vs)
+    au = np.einsum("bsci,bsc->bsi", d["L"], vs)
+    rzx = d["q"] + hx + gx + ax
+    rzu = d["r"] + hu + gu + au
+    gzt = (np.einsum("bsij,bsj->bsi", d["A"], zx[:, :-1])
+           + np.einsum("bsij,bsj->bsi", d["B"], zu[:, :-1]) - zx[:, 1:])
+    gz = np.concatenate([-zx[:, :1], gzt], 1)
+    rl = -np.concatenate([d["x0"][:, None, :], d["c"]], 1) - gz
+    az = (np.einsum("bsci,bsi->bsc", d["E"], zx)
+          + np.einsum("bsci,bsi->bsc", d["L"], zu))
+    rv = _pnr_rv(-d["d"] - az, vs, alpha)
+    sq = lambda a: (a.reshape(B, -1) ** 2).sum(1)
+    return np.sqrt(sq(rzx) + sq(rzu) + sq(rl) + sq(rv))
+
+
+def dense_f64_residual(data, sol, alpha):
+    """rz = f + Hz + G'l + A'v, rl = h - Gz, rv at y = b - Az."""
+    d = {k: getattr(data, k).double().cpu().numpy() for k in data._fields}
+    z, l, v = _host(sol)
+    mv = lambda M, x: np.einsum("bij,bj->bi", M, x)
+    mtv = lambda M, x: np.einsum("bji,bj->bi", M, x)
+    rz = d["f"] + mv(d["H"], z) + mtv(d["G"], l) + mtv(d["A"], v)
+    rl = d["h"] - mv(d["G"], z)
+    rv = _pnr_rv(d["b"] - mv(d["A"], z), v, alpha)
+    sq = lambda a: (a ** 2).sum(1)
+    return np.sqrt(sq(rz) + sq(rl) + sq(rv))
+
+
+# ------------------------------------------------------------------
+# Timing on the card.
+# ------------------------------------------------------------------
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call on the card (CUDA events), after one
+    warm call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), host milliseconds) around synchronized work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def card() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]

@@ -2,12 +2,12 @@
 float64. The headers of fbstab_tpu_torch/csrc are plain C++ behind FB_DEV,
 so tests/torch_host_replay.cpp compiles them with the host compiler, with
 double in place of float, behind the CUDA library's C interface. In float64
-the replayed fused solver (K2) must take exactly the plain solver's
-decisions on every lane: the same exit flag, Newton and proximal iteration
-counts, iterates within 1e-9. The replayed Newton step (K1) must match the
-plain step within 1e-10. This pins the per-lane semantics of the stall
-guard, the linesearch and the exit checks, which float32 knife edges hide
-on the card (chip_smoke.py bounds the float32 Newton counts there)."""
+the replayed fused solvers (K2, MPC; K3, dense) must take exactly the plain
+solvers' decisions on every lane: the same exit flag, Newton and proximal
+iteration counts, iterates within 1e-9. The replayed Newton step (K1) must
+match the plain step within 1e-10. This pins the per-lane semantics of the
+stall guard, the linesearch and the exit checks, which float32 knife edges
+hide on the card (chip_smoke.py bounds the float32 Newton counts there)."""
 
 import ctypes
 import shutil
@@ -21,12 +21,16 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    dims, headline_arrays, mixed_batch, plant_arrays, torch_data)
+    dense_arrays, dense_mixed_batch, dims, headline_arrays, mixed_batch,
+    plant_arrays, torch_data, torch_dense_data)
 
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
 from fbstab_tpu_torch.models.scaling import (  # noqa: E402
-    apply_mpc_scaling, ruiz_mpc_scaling)
+    apply_dense_scaling, apply_mpc_scaling, ruiz_dense_scaling,
+    ruiz_mpc_scaling)
 from fbstab_tpu_torch.ops import _build  # noqa: E402
+from fbstab_tpu_torch.ops.dense_solve_cuda import (  # noqa: E402
+    fbstab_dense_solve_plain)
 from fbstab_tpu_torch.ops.mpc_solve_cuda import (  # noqa: E402
     fbstab_mpc_solve_plain, solve_opts)
 from fbstab_tpu_torch.ops.riccati_cuda import to_batch_last  # noqa: E402
@@ -59,6 +63,9 @@ def lib(tmp_path_factory):
         ws.restype = ctypes.c_longlong
     lib.fb_riccati_step.argtypes = [I] * 5 + [D, D] + [P] * 17
     lib.fb_mpc_solve.argtypes = [I] * 5 + [SolveOpts64] + [P] * 25
+    lib.fb_dense_ws_floats.argtypes = [I] * 3
+    lib.fb_dense_ws_floats.restype = ctypes.c_longlong
+    lib.fb_dense_solve.argtypes = [I] * 4 + [SolveOpts64] + [P] * 19
     return lib
 
 
@@ -176,3 +183,76 @@ def test_replayed_newton_step_matches_plain_step(lib, plant, N, B):
         np.testing.assert_allclose(got.numpy(), w, rtol=1e-10,
                                    atol=1e-10 * (1 + np.abs(w).max()),
                                    err_msg=name)
+
+
+def _replay_dense(lib, data, options):
+    """The replayed K3 from zero initial guesses: (z, l, v, eflag, newton,
+    prox, res), batch-first."""
+    B, n = data.f.shape
+    nl, q = data.h.shape[1], data.b.shape[1]
+    f64 = dict(dtype=torch.float64)
+    guess = [torch.zeros(B, k, **f64) for k in (n, nl, q)]
+    ins = [to_batch_last(a) for a in (*data, *guess)]
+    z, l, v, y = (torch.empty(k, B, **f64) for k in (n, nl, q, q))
+    eflag, newton, prox = (torch.empty(B, dtype=torch.int32)
+                           for _ in range(3))
+    res, res0 = torch.empty(B, **f64), torch.empty(B, **f64)
+    ws = torch.empty(lib.fb_dense_ws_floats(n, q, nl), B, **f64)
+    outs = (z, l, v, y, eflag, res, newton, prox, res0, ws)
+    assert lib.fb_dense_solve(n, q, nl, B, solve_opts(options, SolveOpts64),
+                              *[a.data_ptr() for a in ins],
+                              *[a.data_ptr() for a in outs]) == 0
+    return z.t(), l.t(), v.t(), eflag, newton, prox, res
+
+
+def _dense_equilibrated(B, n=32, q=64, nl=0):
+    data = torch_dense_data(dense_arrays(B, n, q, nl), torch.float64)
+    return apply_dense_scaling(data, ruiz_dense_scaling(data))
+
+
+DENSE_CASES = {
+    "mixed_nl0_abs_tol_1e-8": (
+        lambda: torch_dense_data(dense_mixed_batch(0), torch.float64),
+        lambda: Options(abs_tol=1e-8)),
+    "mixed_nl2_abs_tol_1e-8": (
+        lambda: torch_dense_data(dense_mixed_batch(2), torch.float64),
+        lambda: Options(abs_tol=1e-8)),
+    "mixed_nl2_single_precision": (
+        lambda: torch_dense_data(dense_mixed_batch(2), torch.float64),
+        Options.single_precision),
+    "bench_equilibrated": (lambda: _dense_equilibrated(64),
+                           Options.single_precision),
+    # The JAX package's dense gate (n = 64, q = 128) with Gaussian equality
+    # rows, beyond DENSE_DIMS_CAP: at its corner nl = n the rows fix z and
+    # float32 solves (K3 and its plain version alike) part from float64 on
+    # ill-conditioned lanes; in float64 the device code takes the plain
+    # solver's steps there and at nl = n / 2.
+    "gate_corner_equilibrated": (lambda: _dense_equilibrated(8, 64, 128, 64),
+                                 Options.single_precision),
+    "gate_half_equality_equilibrated": (
+        lambda: _dense_equilibrated(8, 64, 128, 32), Options.single_precision),
+}
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_replayed_dense_solver_takes_the_plain_solvers_decisions(lib, case):
+    make_data, make_options = DENSE_CASES[case]
+    data, opts = make_data(), make_options()
+    z, l, v, eflag, newton, prox, res = _replay_dense(lib, data, opts)
+    B, n = data.f.shape
+    nl, q = data.h.shape[1], data.b.shape[1]
+    guess = [torch.zeros(B, k, dtype=torch.float64) for k in (n, nl, q)]
+    xp, cp = fbstab_dense_solve_plain(data, *guess, opts)
+    for name, got, want in (("eflag", eflag, cp.eflag),
+                            ("newton_iters", newton, cp.newton_iters),
+                            ("prox_iters", prox, cp.prox_iters)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                      err_msg=name)
+    for name, got, want in (("z", z, xp.z), ("l", l, xp.l), ("v", v, xp.v)):
+        w = want.numpy()
+        scale = 1.0 + np.abs(w)
+        np.testing.assert_allclose(got.numpy() / scale, w / scale, atol=1e-9,
+                                   err_msg=name)
+    np.testing.assert_allclose(
+        res.numpy(), cp.residual.numpy(), rtol=0,
+        atol=1e-9 * (1 + cp.initial_residual.max().item()))

@@ -55,8 +55,8 @@ def test_plain_newton_step_matches_reference_f64(plant, N, B):
     arrays = plant_arrays(plant, N, B)
     ins = _step_inputs(arrays, seed=N)
     jd = jax_data(arrays, jnp.float64)
-    ref = jax.vmap(lambda d, *a: _fused_step_impl(d, *a, alpha=ALPHA))(
-        jd, *(jnp.asarray(a) for a in ins))
+    ref = jax.jit(jax.vmap(lambda d, *a: _fused_step_impl(
+        d, *a, alpha=ALPHA)))(jd, *(jnp.asarray(a) for a in ins))
     td = torch_data(arrays, torch.float64)
     got = tm._fused_step_impl(td, *(torch.tensor(a) for a in ins), ALPHA)
     for name, r, g in zip(("dz", "dl", "dv", "dy"), ref[:4], got[:4]):

@@ -31,13 +31,15 @@ def _jax_options(profile):
 
 
 def _solve_both(arrays, jopts):
+    import jax
     import jax.numpy as jnp
     from fbstab_tpu.models.mpc_qp import solve_mpc_qp_batch as jax_solve
 
     N, nx, nu, nc, nz, nl, nv = dims(arrays)
     B = arrays["x0"].shape[0]
-    xr, cr = jax_solve(jax_data(arrays, jnp.float64), jnp.zeros((B, nz)),
-                       jnp.zeros((B, nl)), jnp.zeros((B, nv)), jopts)
+    xr, cr = jax.jit(lambda *a: jax_solve(*a, jopts))(
+        jax_data(arrays, jnp.float64), jnp.zeros((B, nz)),
+        jnp.zeros((B, nl)), jnp.zeros((B, nv)))
     z = lambda n: torch.zeros(B, n, dtype=torch.float64)
     xt, ct = tm.solve_mpc_qp_batch(torch_data(arrays, torch.float64), z(nz),
                                    z(nl), z(nv), torch_options(jopts))
@@ -95,7 +97,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
 def test_facade_solves_one_instance_like_the_batch():
     arrays = plant_arrays("double_integrator", 6, 1, x0s=[[1.5, 0.3]])
     td = torch_data(arrays, torch.float64)
-    solver = tm.FBstabMpc(6, 2, 1, 6)
+    solver = tm.FBstabMpc(6, 2, 1, 6, device="cpu")
     solver.update_options(Options(abs_tol=1e-8))
     x, out = solver.solve(td)
     N, nx, nu, nc, nz, nl, nv = dims(arrays)
@@ -106,7 +108,7 @@ def test_facade_solves_one_instance_like_the_batch():
     torch.testing.assert_close(x.z, xb.z, rtol=0, atol=0)
     assert float(out.solve_time) >= 0.0
     with pytest.raises(ValueError):
-        tm.FBstabMpc(5, 2, 1, 6).solve(td)
+        tm.FBstabMpc(5, 2, 1, 6, device="cpu").solve(td)
 
 
 @pytest.mark.cuda

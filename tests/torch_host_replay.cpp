@@ -12,6 +12,7 @@
 #define fminf fmin
 #define fabsf fabs
 
+#include "dense_solve.cuh"
 #include "mpc_solve.cuh"
 
 extern "C" {
@@ -83,6 +84,39 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
     out.res0 = res0 + b;
     fbstab_mpc_solve_lane(D, o, P, lane_of(z0, B, b), lane_of(l0, B, b),
                           lane_of(v0, B, b), out, lane_of(ws, B, b));
+  }
+  return 0;
+}
+
+long long fb_dense_ws_floats(int n, int q, int nl) {
+  return dense_solve_layout(DenseDims{n, q, nl}).total;
+}
+
+int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
+                   const float* f, const float* G, const float* h,
+                   const float* A, const float* b, const float* z0,
+                   const float* l0, const float* v0, float* z, float* l,
+                   float* v, float* y, int* eflag, float* res, int* newton,
+                   int* prox, float* res0, float* ws) {
+  const DenseDims D{n, q, nl};
+  for (int k = 0; k < B; ++k) {
+    DenseProb P;
+    P.H = lane_of(H, B, k);
+    P.f = lane_of(f, B, k);
+    P.G = lane_of(G, B, k);
+    P.h = lane_of(h, B, k);
+    P.A = lane_of(A, B, k);
+    P.b = lane_of(b, B, k);
+    SolveOut out;
+    out.x = Vars{lane_of(z, B, k), lane_of(l, B, k), lane_of(v, B, k),
+                 lane_of(y, B, k)};
+    out.eflag = eflag + k;
+    out.res = res + k;
+    out.newton = newton + k;
+    out.prox = prox + k;
+    out.res0 = res0 + k;
+    fbstab_dense_solve_lane(D, o, P, lane_of(z0, B, k), lane_of(l0, B, k),
+                            lane_of(v0, B, k), out, lane_of(ws, B, k));
   }
   return 0;
 }

@@ -21,7 +21,7 @@ def plant_arrays(plant: str, N, B, x0s=None):
     numpy fixtures, which equal fbstab_tpu's (tests/test_torch_options.py),
     so the module needs no JAX."""
     from fbstab_tpu_torch.models import ocp_fixtures
-    data, _ = getattr(ocp_fixtures, plant)(N)
+    data, _ = getattr(ocp_fixtures, plant)(N, device="cpu")
     arrays = {k: np.broadcast_to(v[0].numpy(), (B,) + tuple(v.shape[1:]))
               .copy() for k, v in data._asdict().items()}
     if x0s is not None:
@@ -53,8 +53,50 @@ def perturbed_x0(arrays, pert, seed=7):
 def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
     """bench.build_batch's scenario-MPC batch in numpy (the generator
     chip_smoke.py drives the card with), as writable copies."""
-    from chip_smoke import headline_arrays as gen
+    from fbstab_tpu_torch.workloads import headline_arrays as gen
     return {k: np.array(v) for k, v in gen(B, N, nx, nu, nc, seed).items()}
+
+
+def dense_arrays(B, n=32, q=64, nl=0, seed=1):
+    """bench.build_dense_batch's random dense QPs in numpy (the generator
+    chip_smoke.py drives the card with), as writable copies."""
+    from fbstab_tpu_torch.workloads import dense_arrays as gen
+    return {k: np.array(v) for k, v in gen(B, n, q, nl, seed).items()}
+
+
+def dense_mixed_batch(nl=0, B=8, n=6, q=10):
+    """tests/test_dense_fused.py's mixed batch (seed 0) with a
+    rank-deficient lane (3), plus a primal-infeasible lane (5: z0 <= -1
+    and -z0 <= -2) and an unbounded lane (6: H singular along e1, f1 < 0,
+    A e1 <= 0); with nl > 0, random equality rows (G e1 = 0 on lane 6),
+    and lane 7 primal infeasible through them (G forces z0 = 5 against
+    z0 <= 1), so that G'dl and h'dl decide its certificate."""
+    rng = np.random.default_rng(0)
+    M = rng.standard_normal((B, n, n))
+    H = M @ np.transpose(M, (0, 2, 1)) / n + np.eye(n)
+    H[3] = 0.0
+    H[3, 0, 0] = 1.0
+    f = rng.standard_normal((B, n))
+    A = rng.standard_normal((B, q, n))
+    b = np.abs(rng.standard_normal((B, q))) + 0.5
+    G = rng.standard_normal((B, nl, n))
+    h = 0.1 * rng.standard_normal((B, nl))
+    A[5, :2] = 0.0
+    A[5, 0, 0], A[5, 1, 0] = 1.0, -1.0
+    b[5, :2] = -1.0, -2.0
+    H[6, 1, :] = 0.0
+    H[6, :, 1] = 0.0
+    f[6, 1] = -1.0
+    A[6, :, 1] = -np.abs(A[6, :, 1])
+    G[6, :, 1] = 0.0
+    if nl > 0:
+        G[7] = np.eye(nl, n)
+        h[7] = 0.0
+        h[7, 0] = 5.0
+        A[7, 0] = 0.0
+        A[7, 0, 0] = 1.0
+        b[7, 0] = 1.0
+    return dict(H=H, f=f, G=G, h=h, A=A, b=b)
 
 
 def dims(arrays):
@@ -71,9 +113,21 @@ def jax_data(arrays, dtype):
     return MpcQPData(**{k: jnp.asarray(v, dtype) for k, v in arrays.items()})
 
 
-def torch_data(arrays, dtype, device=None):
+def torch_data(arrays, dtype, device="cpu"):
     from fbstab_tpu_torch.interop import mpc_data_from_arrays
     return mpc_data_from_arrays(dtype=dtype, device=device, **arrays)
+
+
+def jax_dense_data(arrays, dtype):
+    import jax.numpy as jnp
+    from fbstab_tpu.models.dense_qp import DenseQPData
+    return DenseQPData(**{k: jnp.asarray(v, dtype)
+                          for k, v in arrays.items()})
+
+
+def torch_dense_data(arrays, dtype, device="cpu"):
+    from fbstab_tpu_torch.interop import dense_data_from_arrays
+    return dense_data_from_arrays(dtype=dtype, device=device, **arrays)
 
 
 def torch_options(jax_options):
@@ -94,7 +148,7 @@ def f64_residual(arrays, z, l, v, alpha, data_dtype=np.float32):
 
 def modules_after_import(module: str) -> set:
     """sys.modules of a fresh interpreter (no conftest) after importing
-    `module`."""
+    `module` (one name, or several separated by commas)."""
     code = (f"import sys, {module}; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
