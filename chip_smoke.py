@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k3-envelope
+    python3 chip_smoke.py --assoc-crossover
 
 Phases, each printing one line (two for a kernel comparison) and each
 fatal on failure:
@@ -26,7 +27,22 @@ fatal on failure:
   8. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
      phase1_newton_iters=16, phase2_size=max(B // 8, 128)) at B = 8192,
      as bench.py's headline calls it;
-  9. the plant audit: three reference plants at B = 128 with perturbed x0.
+  9. the plant audit: the four reference plants at B = 128 with perturbed
+     x0, the copolymerization reactor (N = 80) through tier 2 (K4);
+ 10. K4 (the per-subproblem kernel) against its plain version, each under
+     the host outer loop of models/mpc_subfused.py, on the equilibrated
+     copolymerization reactor (N = 80, B = 256);
+ 11. K5 (the scan-level combine of the associative Riccati) against its
+     plain version on every level of the suffix scan of one Newton step at
+     the copolymerization reactor's dims (B = 256), with the float64 plain
+     version as the yardstick of float32 rounding;
+ 12. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
+     at B = 2048, as `bench.py copoly` runs it, through tier 2;
+ 13. the long-horizon phase: the single-instance solve_mpc_qp on the double
+     integrator in float32 with riccati="scan" and "assoc" at N = 120, 240
+     and 480 (`bench.py longhorizon`'s N), best of 5 each;
+ 14. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
+     the copoly batch at B = 256.
 
 The next-to-last line is a JSON object describing each kernel, the last
 line {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -34,7 +50,10 @@ non-zero and prints no result.
 
 With --k3-envelope it runs phases 1 and 2, then holds K3 against its plain
 version at B = 256 at each ENVELOPE shape within the JAX package's dense
-gate, none fatal: the survey DENSE_DIMS_CAP is chosen from.
+gate, none fatal: the survey DENSE_DIMS_CAP is chosen from. With
+--assoc-crossover it runs phases 1 and 2, then the long-horizon phase at
+N = 240 ... 480 in steps of 60: where the single-instance assoc solve
+overtakes the scan on the card (ASSOC_MIN_HORIZON_CUDA).
 """
 
 from __future__ import annotations
@@ -48,7 +67,8 @@ import numpy as np
 import torch
 
 from fbstab_tpu_torch.workloads import (
-    DENSE, HEADLINE, build_batch, build_dense, card, cuda_ms,
+    COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
+    cuda_ms,
     dense_f64_residual, dense_zeros, mpc_f64_residual, timed, zeros_guess)
 
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
@@ -67,6 +87,11 @@ NEWTON_BAND = 2
 NEWTON_FRAC = 0.90
 NEWTON_MEAN = 0.5     # |mean newton_iters kernel - plain|
 CONTRACT = 1e-6
+# K5 against its plain version, both float32, per output and level:
+# max |K5 - plain| / (1 + max |plain|) per lane. The combine tree's
+# matrices reach condition numbers of ~1/sigma^2, so float32 rounding alone
+# moves the plain version this far from its float64 run (printed beside).
+K5_TOL = 1e-3
 # One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores and
 # HBM3 bandwidth, for the kernels' least possible times (bound_ms).
 PEAK_F32_FLOPS = 67e12
@@ -214,12 +239,13 @@ def phase_k1(B, device):
 
 
 def compare_solver(name, kernel, plain, data, guess, opts, tag, reps=(2, 1),
-                   fatal=True):
+                   fatal=True, warm=True):
     """Holds a fused solver kernel against its plain version on the same
     float32 inputs; prints two lines and, if `fatal`, fails beyond the
     thresholds. Times each with CUDA events over `reps` calls after a warm
-    one, or (reps=None) the first calls on the host clock. Returns the
-    kernel's CoreOut, the max |z| error, both times and whether it passed."""
+    one (warm=False: the comparison call was the warm one), or (reps=None)
+    the first calls on the host clock. Returns the kernel's CoreOut, the
+    max |z| error, both times and whether it passed."""
     (xk, ck), first_k = timed(lambda: kernel(data, *guess, opts))
     (xp, cp), first_p = timed(lambda: plain(data, *guess, opts))
     same = (ck.eflag == cp.eflag).float().mean().item()
@@ -231,8 +257,8 @@ def compare_solver(name, kernel, plain, data, guess, opts, tag, reps=(2, 1),
     if reps is None:
         ms, plain_ms = first_k, first_p
     else:
-        ms = cuda_ms(lambda: kernel(data, *guess, opts), reps[0])
-        plain_ms = cuda_ms(lambda: plain(data, *guess, opts), reps[1])
+        ms = cuda_ms(lambda: kernel(data, *guess, opts), reps[0], warm)
+        plain_ms = cuda_ms(lambda: plain(data, *guess, opts), reps[1], warm)
     B = guess[0].shape[0]
     mk = ck.newton_iters[both].float().mean().item()
     mp = cp.newton_iters[both].float().mean().item()
@@ -349,11 +375,14 @@ def k3_envelope(device):
 
 
 def reset_launches():
+    from fbstab_tpu_torch.ops.assoc_combine_cuda import combine_bl
     from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
+    from fbstab_tpu_torch.ops.mpc_subproblem_cuda import mpc_subproblem_fused
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     kernels = dict(K1=riccati_newton_step_batched, K2=fbstab_mpc_solve_fused,
-                   K3=fbstab_dense_solve_fused)
+                   K3=fbstab_dense_solve_fused, K4=mpc_subproblem_fused,
+                   K5=combine_bl)
     for k in kernels.values():
         k.launches = 0
     return lambda: {name: k.launches for name, k in kernels.items()}
@@ -538,7 +567,8 @@ def phase_plants(B, device):
     opts = Options.single_precision()
     plants = [(ocp_fixtures.double_integrator, 20, 0.05),
               (ocp_fixtures.servo_motor, 25, 0.05),
-              (ocp_fixtures.spacecraft_relative_motion, 40, 0.001)]
+              (ocp_fixtures.spacecraft_relative_motion, 40, 0.001),
+              (ocp_fixtures.copolymerization_reactor, 80, 0.05)]
     parts, ok = [], True
     for plant, N, pert in plants:
         one, _ = plant(N, dtype=torch.float32, device=device)
@@ -560,11 +590,236 @@ def phase_plants(B, device):
         ok = ok and plant_ok
         parts.append(f"{plant.__name__} N={N}: nominal {res64[0]:.2e} "
                      f"success {good.mean():.3f} worst solved {worst:.2e}")
-    print("plants: B=%d " % B + "; ".join(parts)
-          + " (copolymerization_reactor left out: its tier, the "
-          "per-subproblem kernel, is not ported yet)")
+    print("plants: B=%d " % B + "; ".join(parts))
     if not ok:
         fail("plant audit misses the contract")
+
+
+def phase_k4(B, device):
+    """K4 against its plain version, each under the host outer loop, on the
+    equilibrated copolymerization reactor. A solve takes seconds, so the
+    comparison call is the warm one and one call is timed."""
+    from fbstab_tpu_torch.models.mpc_subfused import (
+        fbstab_mpc_solve_subfused)
+    from fbstab_tpu_torch.models.scaling import (
+        apply_mpc_scaling, ruiz_mpc_scaling)
+    from fbstab_tpu_torch.ops.mpc_subproblem_cuda import (
+        mpc_subproblem_fused, mpc_subproblem_plain)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_copoly(B, device)
+    data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+    guess = zeros_guess(data)
+    n0 = mpc_subproblem_fused.launches
+    ck, max_abs, ms, plain_ms, _ = compare_solver(
+        "K4", fbstab_mpc_solve_subfused,
+        lambda *a: fbstab_mpc_solve_subfused(
+            *a, subproblem=mpc_subproblem_plain),
+        data, guess, opts, f"equilibrated copoly N={COPOLY['N']}",
+        reps=(1, 1), warm=False)
+    launches = (mpc_subproblem_fused.launches - n0) // 2   # per solve
+    N, nx, nc = COPOLY["N"], COPOLY["nx"], COPOLY["nc"]
+    flops = B * solve_flops(
+        riccati_flops(**COPOLY) + 8 * (N + 1) * nc,
+        mpc_residual_flops(**COPOLY), ck.newton_iters.float().mean().item(),
+        ck.prox_iters.float().mean().item())
+    # Each launch reads the data and the center and writes the iterate.
+    state = nbytes(*guess) + nbytes(guess[2])
+    bound_ms, bound_by = bound(
+        flops, launches * (nbytes(*data) + 2 * state + 8 * 4 * B))
+    print(f"K4: bound {bound_ms:.4f} ms ({bound_by}; {launches} launches "
+          f"per solve, mean newton {ck.newton_iters.float().mean().item():.2f}"
+          f", one linesearch trial each)")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def combine_flops(n):
+    """One combine per (pair, instance): the factor of K, the solves of its
+    2n + 1 right-hand sides, the six products."""
+    return n ** 3 / 3 + 2 * n * n * (2 * n + 1) + 6 * n ** 3 + 4 * n * n
+
+
+def phase_k5(B, device):
+    """K5 against its plain version on every level of the suffix scan of
+    one Newton step at the copolymerization reactor's dims, on iterates
+    from a few plain proximal Newton steps. The float64 plain version on the
+    same inputs shows how far float32 rounding alone moves the plain one."""
+    from fbstab_tpu_torch.core.residuals import inner_residual
+    from fbstab_tpu_torch.core.variable import Variable, var_axpy
+    from fbstab_tpu_torch.models.mpc_qp import (
+        MPC_OPS, _b_vec, _gemvA, assoc_step_inputs)
+    from fbstab_tpu_torch.models.scaling import (
+        apply_mpc_scaling, ruiz_mpc_scaling)
+    from fbstab_tpu_torch.ops.assoc_combine_cuda import (
+        SpanElement, combine_bl, combine_bl_plain)
+    from fbstab_tpu_torch.ops.assoc_riccati import (
+        stage_elements_bl, suffix_values)
+    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_plain
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_copoly(B, device)
+    data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+    z0, l0, v0 = zeros_guess(data)
+    b = _b_vec(data)
+    x = Variable(z=z0, l=l0, v=v0, y=b - _gemvA(data, z0))
+    sigma, alpha = opts.sigma0, opts.alpha
+    for _ in range(3):      # a few plain proximal Newton steps
+        r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
+        dz, dl, dv, dy = riccati_newton_step_plain(
+            data, x.v, x.y, x.v, -r.z, -r.l, -r.v, sigma, alpha)
+        x = var_axpy(1.0, Variable(dz, dl, dv, dy), x, b)
+        x = x._replace(v=torch.clamp(x.v, min=0.0))
+    r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
+    _, _, args = assoc_step_inputs(data, x.v, x.y, x.v, -r.z, -r.l, -r.v,
+                                   sigma, alpha)
+    elems, _ = stage_elements_bl(*args)
+    levels = []
+
+    def record(left, right):
+        levels.append((left, right))
+        return combine_bl_plain(left, right)
+    suffix_values(elems, combine=record)
+
+    f64 = lambda e: SpanElement(*(a.double() for a in e))
+    rel = lambda g, w: ((g - w).abs().amax((0, 1, 2)[:w.ndim - 1])
+                        / (1 + w.abs().amax((0, 1, 2)[:w.ndim - 1])))
+    worst_k5, worst_f32, max_abs = 0.0, 0.0, 0.0
+    for left, right in levels:
+        got = combine_bl(left, right)
+        want = combine_bl_plain(left, right)
+        ref = combine_bl_plain(f64(left), f64(right))
+        for g, w, w64 in zip(got, want, ref):
+            worst_k5 = max(worst_k5, rel(g, w).max().item())
+            worst_f32 = max(worst_f32, rel(w.double(), w64).max().item())
+            max_abs = max(max_abs, (g - w).abs().max().item())
+    left, right = levels[0]                  # the widest level
+    M, n = left.P11.shape[0], left.P11.shape[1]
+    ms = cuda_ms(lambda: combine_bl(left, right), 5)
+    plain_ms = cuda_ms(lambda: combine_bl_plain(left, right), 3)
+    bound_ms, bound_by = bound(M * B * combine_flops(n),
+                               nbytes(*left, *right) + nbytes(*left))
+    print(f"K5: copoly n={n} B={B}, {len(levels)} scan levels, widest M={M}:"
+          f" max rel err vs plain {worst_k5:.3e} (tol {K5_TOL}); float32 "
+          f"plain vs float64 plain {worst_f32:.3e}; max abs err "
+          f"{max_abs:.3e} | widest level: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not np.isfinite(worst_k5) or worst_k5 > K5_TOL:
+        fail("K5 disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_copoly(B, device):
+    """bench.py copoly's call at B = 2048 through tier 2: one call timed
+    stage by stage (it is also the warm one), then the timed call whose
+    launches are counted, with its peak device memory."""
+    from fbstab_tpu_torch.models.mpc_qp import (
+        _solve_mpc_qp_batch_raw, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.models.refine import refine_solution_mpc
+    from fbstab_tpu_torch.models.scaling import (
+        ruiz_mpc_scaling, solve_scaled_mpc)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_copoly(B, device)
+    guess = zeros_guess(data)
+    o = opts.validated()
+    counts = reset_launches()
+    scal, t_ruiz = timed(lambda: ruiz_mpc_scaling(data))
+    (xs, cs), t_solve = timed(lambda: solve_scaled_mpc(
+        lambda d, z, l, v: _solve_mpc_qp_batch_raw(d, z, l, v, o), data,
+        *guess, o, scal=scal, skip_residual_rewrite=True))
+    n_solve = counts()
+    _, t_ref = timed(lambda: refine_solution_mpc(data, xs, cs, o,
+                                                 scal=scal))
+    n_all = counts()
+    print(f"copoly breakdown (ms): ruiz {t_ruiz:.1f} | tier-2 solve "
+          f"{t_solve:.1f} ({n_solve['K4']} K4 launches) | refine "
+          f"{t_ref:.1f} ({n_all['K1'] - n_solve['K1']} K1 launches) | "
+          f"LINEAR_SOLVER_FAILED lanes before retry "
+          f"{int((cs.eflag == 6).sum())}")
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_launches()
+    (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
+    n = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    good = check_contract("copoly path", x, core, res64, guess, False)
+    print(f"copoly: B={B} N={COPOLY['N']} QPs/s {B / (t / 1e3):.1f} ("
+          f"{t / 1e3:.3f} s) success_frac {good.mean():.4f} "
+          f"residual_f64_max_success {res64[good].max():.3e} "
+          f"refine_steps max {int(core.refine_steps.max())} | launches K4 "
+          f"{n['K4']} K1 {n['K1']} | peak device memory {peak:.2f} GiB")
+    if n["K4"] < 1:
+        fail("copoly path did not launch K4")
+    return n
+
+
+def phase_longhorizon(device, Ns=(120, 240, 480), reps=5):
+    """bench.py longhorizon on the card: solve_mpc_qp on the double
+    integrator in float32 with both Riccati steps, best of `reps` after a
+    warm call, at each N; both must succeed. Launches are counted over the
+    last N's calls."""
+    from fbstab_tpu_torch.models.mpc_qp import mpc_dims, solve_mpc_qp
+    from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    parts = []
+    for N in Ns:
+        data, _ = double_integrator(N, dtype=torch.float32, device=device)
+        _, nx, nu, nc = mpc_dims(data)
+        z = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
+        guess = (z((N + 1) * (nx + nu)), z((N + 1) * nx), z((N + 1) * nc))
+        counts = reset_launches()
+        best = {}
+        for mode in ("scan", "assoc"):
+            times = []
+            for i in range(reps + 1):
+                fresh = data._replace(x0=data.x0 + 1e-6 * i)
+                (x, core), ms = timed(lambda: solve_mpc_qp(
+                    fresh, *guess, opts, riccati=mode))
+                if int(core.eflag) != 0:
+                    fail(f"longhorizon N={N} {mode}: eflag "
+                         f"{int(core.eflag)}")
+                if i:
+                    times.append(ms)
+            best[mode] = min(times)
+        n = counts()
+        parts.append(f"N={N} scan {best['scan']:.1f} ms assoc "
+                     f"{best['assoc']:.1f} ms (scan/assoc "
+                     f"{best['scan'] / best['assoc']:.3f})")
+    print("longhorizon: best of %d, " % reps + "; ".join(parts)
+          + f" | launches at N={Ns[-1]}: K5 {n['K5']} K1 {n['K1']}")
+    if n["K5"] < 1:
+        fail("longhorizon assoc did not launch K5")
+    return n
+
+
+def phase_assoc_batch(B, device):
+    """solve_mpc_qp_batch(..., riccati="assoc") on the copoly batch."""
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_copoly(B, device)
+    guess = zeros_guess(data)
+    counts = reset_launches()
+    (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts,
+                                                    riccati="assoc"))
+    n = counts()
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    good = check_contract("batched assoc", x, core, res64, guess, False)
+    print(f"assoc batch: copoly B={B} {t / 1e3:.3f} s ({B / (t / 1e3):.1f} "
+          f"QPs/s, one call) success_frac {good.mean():.4f} "
+          f"residual_f64_max_success {res64[good].max():.3e} | launches K5 "
+          f"{n['K5']} K1 {n['K1']}")
+    if n["K5"] < 1:
+        fail("batched assoc did not launch K5")
+    return n
 
 
 def main():
@@ -578,15 +833,25 @@ def main():
     if sys.argv[1:] == ["--k3-envelope"]:
         k3_envelope(device)
         return
+    if sys.argv[1:] == ["--assoc-crossover"]:
+        phase_longhorizon(device, Ns=(240, 300, 360, 420, 480))
+        return
     k1 = phase_k1(8192, device)
     k2 = phase_k2(1024, device)
     k3 = phase_k3(device)
+    k4 = phase_k4(256, device)
+    k5 = phase_k5(256, device)
     qps, n_oneshot = phase_main(8192, device)
     n_dense = phase_dense_main(4096, device)
     n_adapt = phase_adaptive(8192, device, qps)
     phase_plants(128, device)
-    by_path = lambda k: {"mpc_one_shot": n_oneshot[k],
-                         "dense": n_dense[k], "mpc_adaptive": n_adapt[k]}
+    n_copoly = phase_copoly(2048, device)
+    n_long = phase_longhorizon(device)
+    n_assoc = phase_assoc_batch(256, device)
+    paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
+                 mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
+                 longhorizon=n_long)
+    by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
              source="fbstab_tpu_torch/csrc/riccati.cu",
@@ -600,6 +865,14 @@ def main():
              source="fbstab_tpu_torch/csrc/dense_solve.cu",
              replaces="fbstab_tpu/ops/dense_solve_pallas.py:421",
              launches=n_dense["K3"], launches_by_path=by_path("K3"), **k3),
+        dict(name="mpc_subproblem_fused", route="cuda",
+             source="fbstab_tpu_torch/csrc/mpc_subproblem.cu",
+             replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1347",
+             launches=n_copoly["K4"], launches_by_path=by_path("K4"), **k4),
+        dict(name="combine_bl", route="cuda",
+             source="fbstab_tpu_torch/csrc/assoc_combine.cu",
+             replaces="fbstab_tpu/ops/assoc_riccati.py:388",
+             launches=n_assoc["K5"], launches_by_path=by_path("K5"), **k5),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ The batched float32 contract solves of the MPC and dense QP classes
 `Options.single_precision()`, one-shot or through the adaptive two-phase
 wrappers of parallel/adaptive.py) run on an NVIDIA H100 through
 hand-written CUDA kernels: the fused MPC solver (ops/mpc_solve_cuda.py),
-the Riccati Newton step (ops/riccati_cuda.py) and the fused dense solver
-(ops/dense_solve_cuda.py); on the CPU, through their plain PyTorch
-versions. Data goes on the card unless the caller passes device="cpu".
+the per-subproblem MPC kernel of large stage dimensions
+(ops/mpc_subproblem_cuda.py), the Riccati Newton step (ops/riccati_cuda.py),
+the combine of the associative Riccati scan (ops/assoc_combine_cuda.py,
+`riccati="assoc"` and the single-instance `solve_mpc_qp`) and the fused
+dense solver (ops/dense_solve_cuda.py); on the CPU, through their plain
+PyTorch versions. Data goes on the card unless the caller passes device="cpu".
 The JAX package `fbstab_tpu` is the reference this package is tested
 against; nothing here imports JAX.
 """
@@ -26,6 +29,7 @@ from fbstab_tpu_torch.models.mpc_qp import (
     batch_data,
     mpc_dims,
     mpc_qp_data,
+    solve_mpc_qp,
     solve_mpc_qp_batch,
 )
 from fbstab_tpu_torch.models.refine import VariableDF
@@ -46,7 +50,8 @@ __all__ = [
     "VariableDF", "batch_data", "dense_qp_data", "fbstab_solve_batch",
     "mpc_dims", "mpc_qp_data", "solve_dense_qp_batch",
     "solve_dense_qp_batch_adaptive", "solve_dense_qp_batch_adaptive_device",
-    "solve_dense_qp_batch_adaptive_schedule", "solve_mpc_qp_batch",
+    "solve_dense_qp_batch_adaptive_schedule", "solve_mpc_qp",
+    "solve_mpc_qp_batch",
     "solve_mpc_qp_batch_adaptive", "solve_mpc_qp_batch_adaptive_device",
     "solve_mpc_qp_batch_adaptive_schedule",
 ]

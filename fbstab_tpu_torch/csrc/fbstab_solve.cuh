@@ -5,7 +5,8 @@
 // (reference fbstab_algorithm-impl.h:113-304). A transcription of
 // `vmap(fbstab_solve)` for one lane: each instance runs its own loops, so
 // nothing is masked. K2 (mpc_solve.cuh) and K3 (dense_solve.cuh) each
-// instantiate it with their problem class.
+// instantiate it with their problem class; K4 (mpc_subproblem.cu) runs one
+// outer iteration of it per launch (fb_outer_step).
 //
 // A problem class `Prob` holds one instance's data and Newton-step
 // scratch and provides:
@@ -157,6 +158,60 @@ FB_DEV float fb_subproblem(const Prob& P, const SolveOpts& o, const Vars& xk,
   // Project duals (impl.h:301).
   for (long long k = 0; k < P.nv(); ++k) xi.v[k] = fmaxf(xi.v[k], 0.0f);
   return Eo;
+}
+
+// One outer proximal iteration of one instance, for a loop that runs on
+// the host (K4): the head of the outer iteration (Ek, the success / stall
+// test, the inner tolerance, impl.h:162-180), then for a lane that is
+// neither done on entry nor successful the inner Newton loop from xi = xk
+// and the norm of xi - xk for the next stall test (impl.h:164, 203). A
+// lane that is done or successful leaves with xi = xk, Eo = 0, newton
+// unchanged, lfail false and dxn unchanged: the skip branch of the host
+// loop's per-lane select (mpc_solve_pallas.py:1296-1314). Ek, success and
+// itol are returned for every lane, so that the host loop's exits read the
+// arithmetic of this iteration and no other. fbstab_solve_lane keeps its
+// own copy of these steps: calling this function from it cost K2 1.2% in
+// an A/B on an H100 (spills at the register cap).
+struct OuterStep {
+  float Eo, Ek, itol, dxn;
+  int newton;
+  bool lfail, success;
+};
+
+template <class Prob>
+FB_DEV OuterStep fb_outer_step(const Prob& P, const SolveOpts& o,
+                               const Vars& xk, const Vars& xi, const Vars& d,
+                               const Vars& xt, const Vars& r, float itol_prev,
+                               float dxn_prev, int newton, bool done) {
+  const float combo_tol =
+      o.abs_tol + o.rel_tol * (1.0f + sqrtf(P.forcing_sq()));
+  OuterStep s;
+  s.Ek = fb_pnr(P, o, xk);
+  s.success = (s.Ek <= combo_tol) || (dxn_prev <= o.stall_tol);
+  s.itol = fminf(fmaxf(itol_prev * o.delta, o.inner_tol_min), s.Ek);
+  s.Eo = 0.0f;
+  s.newton = newton;
+  s.lfail = false;
+  s.dxn = dxn_prev;
+  fb_vars_copy(P, xi, xk);
+  if (done || s.success) return s;
+  s.Eo = fb_subproblem(P, o, xk, xi, d, xt, r, s.itol, s.Ek, s.newton,
+                       s.lfail);
+  float s2 = 0.0f;
+  for (long long q = 0; q < P.nz(); ++q) {
+    float e = xi.z[q] - xk.z[q];
+    s2 += e * e;
+  }
+  for (long long q = 0; q < P.nl(); ++q) {
+    float e = xi.l[q] - xk.l[q];
+    s2 += e * e;
+  }
+  for (long long q = 0; q < P.nv(); ++q) {
+    float e = xi.v[q] - xk.v[q];
+    s2 += e * e;
+  }
+  s.dxn = sqrtf(s2);
+  return s;
 }
 
 // Outputs of one instance.

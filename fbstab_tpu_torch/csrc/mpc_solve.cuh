@@ -259,6 +259,33 @@ FB_HD SolveLayout solve_layout(const MpcDims& D) {
       fb_vars_floats(N1 * (D.nx + D.nu), N1 * D.nx, N1 * D.nc));
 }
 
+// K4's scratch per instance: the Riccati scratch, then the step d, the
+// trial point xt and the negated residual r (xk and xi are the kernel's
+// input and output).
+FB_HD long long subproblem_ws_floats(const MpcDims& D) {
+  long long N1 = D.N + 1;
+  return ric_layout(D).total
+         + 3 * fb_vars_floats(N1 * (D.nx + D.nu), N1 * D.nx, N1 * D.nc);
+}
+
+// One outer iteration of one MPC instance about xk (K4), into xi.
+FB_DEV OuterStep fbstab_mpc_subproblem_lane(const MpcDims& D,
+                                            const SolveOpts& o,
+                                            const MpcProb& P, const Vars& xk,
+                                            const Vars& xi, float itol_prev,
+                                            float dxn_prev, int newton,
+                                            bool done, Lane ws) {
+  const long long N1 = D.N + 1;
+  const long long nz = N1 * (D.nx + D.nu), nl = N1 * D.nx, nv = N1 * D.nc;
+  const long long nvar = fb_vars_floats(nz, nl, nv);
+  const Lane its = ws.at(ric_layout(D).total);
+  const MpcSolveProb prob{D, P, ws};
+  return fb_outer_step(prob, o, xk, xi, fb_vars_at(its, nz, nl, nv),
+                       fb_vars_at(its.at(nvar), nz, nl, nv),
+                       fb_vars_at(its.at(2 * nvar), nz, nl, nv), itol_prev,
+                       dxn_prev, newton, done);
+}
+
 // The whole solve of one MPC instance from (z0, l0, v0).
 FB_DEV void fbstab_mpc_solve_lane(const MpcDims& D, const SolveOpts& o,
                                   const MpcProb& P, Lane z0, Lane l0, Lane v0,

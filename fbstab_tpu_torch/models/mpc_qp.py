@@ -387,21 +387,38 @@ def _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha):
 
 # ------------------------------------------------------------------
 # Kernel dispatch. Every float32 batch on the card takes K1 as its Newton
-# step. The fused solver K2 takes float32 batches on the card within
-# SOLVE_DIMS_CAP. The kernels size everything at run time (one thread per
-# instance, scratch in device memory), so the cap is not a resource limit:
-# it is the envelope of the shapes K2 was held against its plain version
-# on an H100, the headline (N=30 nx=8 nu=3 nc=6) and the three audited
-# plants (up to N=40 nx=6 nc=12). Larger stage dimensions are the JAX
-# package's tier-2 shapes (the per-subproblem kernel, not ported yet):
-# they run the lockstep solver with K1 as the Newton step.
+# step. Tier 1, the fused solver K2, takes float32 batches on the card
+# within SOLVE_DIMS_CAP; tier 2, the host outer loop on the per-subproblem
+# kernel K4 (models/mpc_subfused.py), takes those beyond it within
+# SUBPROBLEM_DIMS_CAP. The kernels size everything at run time (one thread
+# per instance, scratch in device memory), so the caps are not resource
+# limits: each is the envelope of the shapes its kernel was held against
+# its plain version at on an H100. K2: the headline (N=30 nx=8 nu=3 nc=6)
+# and the three small audited plants (up to N=40 nx=6 nc=12). K4: the
+# copolymerization reactor (N=80 nx=18 nu=5 nc=10). Larger shapes run
+# tier 3, the lockstep solver with K1 as the Newton step.
 # ------------------------------------------------------------------
 
 SOLVE_DIMS_CAP = dict(N=40, nx=8, nu=3, nc=12)
+SUBPROBLEM_DIMS_CAP = dict(N=80, nx=18, nu=5, nc=10)
 
 
 def _cuda_f32(t: torch.Tensor) -> bool:
     return t.is_cuda and t.dtype == torch.float32
+
+
+def mpc_solve_tier(dims, dtype, device) -> int:
+    """The tier `solve_mpc_qp_batch` sends a batch of stage dims (N, nx,
+    nu, nc) in `dtype` on `device` to with riccati="scan": 1 (K2), 2 (the
+    host outer loop on K4) or 3 (the lockstep solver)."""
+    N, nx, nu, nc = dims
+    if torch.device(device).type != "cuda" or dtype != torch.float32:
+        return 3
+    for tier, cap in ((1, SOLVE_DIMS_CAP), (2, SUBPROBLEM_DIMS_CAP)):
+        if (N <= cap["N"] and nx <= cap["nx"] and nu <= cap["nu"]
+                and nc <= cap["nc"]):
+            return tier
+    return 3
 
 
 def mpc_newton_step(d, v, y, vbar, rz, rl, rv, sigma, alpha):
@@ -439,7 +456,91 @@ MPC_PLAIN_OPS = MPC_OPS._replace(newton_step=_newton_step_op(_fused_step_impl))
 
 
 # ------------------------------------------------------------------
-# Batched entry points.
+# Parallel-in-horizon (associative-scan) Riccati Newton step
+# (ops/assoc_riccati.py): O(log N) depth per step for long horizons. It
+# solves the same system as _riccati_solve in another order of operations,
+# so iterate paths can differ at roundoff. On the card each scan level is
+# one launch of K5.
+# ------------------------------------------------------------------
+
+# The single-instance riccati="auto" takes the associative step from these
+# horizons on. On the CPU: the JAX package's CPU crossover (float64, double
+# integrator). On CUDA: the crossover measured on an H100 in float32 on the
+# double integrator (`chip_smoke.py --assoc-crossover`, PERF.md): the scan
+# is the faster up to N = 420, the two are level at N = 480 and the
+# associative step gains with N.
+ASSOC_MIN_HORIZON = 192
+ASSOC_MIN_HORIZON_CUDA = 480
+
+
+def assoc_step_inputs(d, v, y, vbar, rz, rl, rv, sigma, alpha):
+    """The inputs of the associative solve for one batched Newton step:
+    the PFB weights (gamma, mus) batch-first, and the stage Hessians, A, B,
+    r1 = rz - A'(rv ./ mus) and rl batch-last, in the argument order of
+    ops.assoc_riccati.assoc_kkt_solve_bl (sigma last)."""
+    N, nx, nu, nc = mpc_dims(d)
+    Bq = v.shape[0]
+    gamma, mus, Gam = pfb_weights(y, v, vbar, _lane_sigma(sigma, v), alpha)
+    Qh, Rh, Sh = _stage_hessians(d, Gam, sigma)
+    r1 = (rz - _gemvAT(d, rv / mus)).reshape(Bq, N + 1, nx + nu)
+    last = lambda a: a.permute(*range(1, a.ndim), 0)     # (B, ...) -> (..., B)
+    args = (last(Qh), last(Rh), last(Sh), last(d.A), last(d.B),
+            last(r1[..., :nx]), last(r1[..., nx:]),
+            last(rl.reshape(Bq, N + 1, nx)), sigma)
+    return gamma, mus, args
+
+
+def _assoc_step_batched(d, v, y, vbar, rz, rl, rv, sigma, alpha):
+    """Batched associative-Riccati Newton step (`_assoc_step_batched` in
+    the JAX package): PFB weights, stage Hessians and r1 batch-first, the
+    span algebra batch-last. sigma: scalar or per-lane (B,). Returns
+    (dz, dl, dv, dy, ok) with ok = finite (dz, dl)."""
+    from fbstab_tpu_torch.ops.assoc_riccati import assoc_kkt_solve_bl
+
+    Bq = v.shape[0]
+    exact_f32_matmul(v)
+    gamma, mus, args = assoc_step_inputs(d, v, y, vbar, rz, rl, rv, sigma,
+                                         alpha)
+    xs, us, lams = assoc_kkt_solve_bl(*args)
+    first = lambda a: a.permute(a.ndim - 1, *range(a.ndim - 1))
+    dz = torch.cat([first(xs), first(us)], -1).reshape(Bq, -1)
+    dl = first(lams).reshape(Bq, -1)
+    Adz = _gemvA(d, dz)
+    dv = (rv + gamma * Adz) / mus
+    dy = _b_vec(d) - Adz
+    ok = torch.isfinite(dz).all(1) & torch.isfinite(dl).all(1)
+    return dz, dl, dv, dy, ok
+
+
+MPC_OPS_ASSOC = MPC_OPS._replace(
+    newton_step=_newton_step_op(_assoc_step_batched))
+
+
+def _pick_mpc_ops(data: MpcQPData, riccati: str) -> ProblemOps:
+    if riccati == "scan":
+        return MPC_OPS
+    if riccati == "assoc":
+        return MPC_OPS_ASSOC
+    if riccati != "auto":
+        raise ValueError(
+            f"riccati must be 'auto', 'scan' or 'assoc', got {riccati!r}")
+    N = mpc_dims(data)[0]
+    thresh = ASSOC_MIN_HORIZON_CUDA if data.Q.is_cuda else ASSOC_MIN_HORIZON
+    return MPC_OPS_ASSOC if N >= thresh else MPC_OPS
+
+
+def _auto_batch_riccati(data: MpcQPData, dtype, device) -> str:
+    """riccati="auto" for batches: float32 batches on the card stay on the
+    sequential scan (its tiers are the fused kernels), as the JAX package
+    keeps TPU float32 batches; elsewhere the associative step from
+    ASSOC_MIN_HORIZON on, the JAX package's policy off the TPU."""
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        return "scan"
+    return "assoc" if mpc_dims(data)[0] >= ASSOC_MIN_HORIZON else "scan"
+
+
+# ------------------------------------------------------------------
+# Entry points.
 # ------------------------------------------------------------------
 
 def beyond_envelope_noeq(data: MpcQPData, dtype, backend=None) -> bool:
@@ -459,20 +560,47 @@ def gate_mpc_options(data: MpcQPData, dtype, options: Options) -> Options:
     return o
 
 
-def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options):
-    """Tier 1: the fused CUDA solver (K2) for float32 batches on the card
-    within SOLVE_DIMS_CAP. Tier 3: the batched lockstep solver, whose
-    Newton step is K1 on the card in float32 and the plain recursion
-    elsewhere. (The JAX package's tier 2, the per-subproblem kernel for
-    large stage dimensions, is not ported yet; those shapes take
-    tier 3.)"""
-    N, nx, nu, nc = mpc_dims(data)
-    cap = SOLVE_DIMS_CAP
-    if (_cuda_f32(z0) and N <= cap["N"] and nx <= cap["nx"]
-            and nu <= cap["nu"] and nc <= cap["nc"]):
+def solve_mpc_qp(data: MpcQPData, z0, l0, v0, options: Options = Options(),
+                 riccati: str = "auto"):
+    """Single-instance MPC solve (the JAX package's `solve_mpc_qp`): the
+    FBstab core on one QP, given as MpcQPData with a batch of one and
+    guesses z0 (nz,), l0 (nl,), v0 (nv,). Returns lane 0's (Variable,
+    CoreOut), unbatched. No equilibration or refinement, as in the JAX
+    package.
+
+    riccati: "auto" (the associative step from ASSOC_MIN_HORIZON on the
+    CPU, ASSOC_MIN_HORIZON_CUDA on the card), "scan" or "assoc". Both solve
+    the same Newton system; iterate paths agree to roundoff only."""
+    if data.x0.shape[0] != 1:
+        raise ValueError(f"solve_mpc_qp takes one instance (a batch of one), "
+                         f"got a batch of {data.x0.shape[0]}")
+    ops = _pick_mpc_ops(data, riccati)
+    exact_f32_matmul(z0)
+    x, core = fbstab_solve_batch(ops, data, z0[None], l0[None], v0[None],
+                                 options)
+    one = lambda a: a[0] if isinstance(a, torch.Tensor) else a
+    return Variable(*(one(a) for a in x)), CoreOut(*(one(a) for a in core))
+
+
+def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options,
+                            riccati: str = "scan"):
+    """riccati="scan" runs the tier of mpc_solve_tier: 1, the fused CUDA
+    solver (K2); 2, the host outer loop on the per-subproblem kernel (K4);
+    3, the batched lockstep solver, whose Newton step is K1 on the card in
+    float32 and the plain recursion elsewhere. riccati="assoc" runs the
+    lockstep solver on the associative Riccati step (K5 on the card)."""
+    if riccati == "assoc":
+        exact_f32_matmul(z0)
+        return fbstab_solve_batch(MPC_OPS_ASSOC, data, z0, l0, v0, options)
+    tier = mpc_solve_tier(mpc_dims(data), z0.dtype, z0.device)
+    if tier == 1:
         from fbstab_tpu_torch.ops.mpc_solve_cuda import (
             fbstab_mpc_solve_fused)
         return fbstab_mpc_solve_fused(data, z0, l0, v0, options)
+    if tier == 2:
+        from fbstab_tpu_torch.models.mpc_subfused import (
+            fbstab_mpc_solve_subfused)
+        return fbstab_mpc_solve_subfused(data, z0, l0, v0, options)
     exact_f32_matmul(z0)
     return fbstab_solve_batch(MPC_OPS, data, z0, l0, v0, options)
 
@@ -491,16 +619,16 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
     value in original units.
 
     scaling: optional precomputed batched MpcScaling for `data`.
-    riccati: "auto" or "scan", both the sequential stage recursion; the
-    JAX package's "assoc" (the associative Riccati scan, kernel K5) is not
-    ported yet (ROADMAP item 13)."""
-    if riccati == "assoc":
-        raise NotImplementedError(
-            "riccati='assoc' needs the associative Riccati scan (kernel K5, "
-            "ROADMAP item 13), which is not ported yet")
-    if riccati not in ("auto", "scan"):
+    riccati: "scan" (the sequential stage recursion on the tiers of
+    _solve_mpc_qp_batch_raw), "assoc" (the lockstep solver on the
+    associative Riccati step) or "auto" (_auto_batch_riccati). The
+    refinement's corrections take the sequential step either way, as in
+    the JAX package."""
+    if riccati not in ("auto", "scan", "assoc"):
         raise ValueError(f"riccati must be 'auto', 'scan' or 'assoc', got "
                          f"{riccati!r}")
+    if riccati == "auto":
+        riccati = _auto_batch_riccati(data, z0.dtype, z0.device)
     opts = options.validated()
     from fbstab_tpu_torch.models.refine import (
         refine_engaged, refine_solution_mpc)
@@ -520,7 +648,7 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
     def scaled_solve(o, z, l, v):
         return solve_scaled_mpc(
             lambda dd, zz, ll, vv: _solve_mpc_qp_batch_raw(
-                dd, zz, ll, vv, o), data, z, l, v, o, scal=scal,
+                dd, zz, ll, vv, o, riccati), data, z, l, v, o, scal=scal,
             skip_residual_rewrite=will_refine)
 
     x, core = scaled_solve(opts, z0, l0, v0)
@@ -603,6 +731,7 @@ class FBstabMpc:
 
 
 __all__ = [
-    "CoreOut", "FBstabMpc", "MPC_OPS", "MpcQPData", "batch_data",
-    "mpc_dims", "mpc_qp_data", "solve_mpc_qp_batch",
+    "CoreOut", "FBstabMpc", "MPC_OPS", "MPC_OPS_ASSOC", "MpcQPData",
+    "batch_data", "mpc_dims", "mpc_qp_data", "solve_mpc_qp",
+    "solve_mpc_qp_batch",
 ]

@@ -114,6 +114,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I, I, I, I, SolveOpts] + [P] * 19 + [P]
     lib.fb_dense_solve.restype = I
+    lib.fb_subproblem_ws_floats.argtypes = [I, I, I, I]
+    lib.fb_subproblem_ws_floats.restype = ctypes.c_longlong
+    lib.fb_mpc_subproblem.argtypes = ([I, I, I, I, I, SolveOpts] + [P] * 32
+                                      + [P])
+    lib.fb_mpc_subproblem.restype = I
+    lib.fb_combine_ws_floats.argtypes = [I]
+    lib.fb_combine_ws_floats.restype = ctypes.c_longlong
+    lib.fb_assoc_combine.argtypes = [I, I, I] + [P] * 16 + [P]
+    lib.fb_assoc_combine.restype = I
     return lib
 
 

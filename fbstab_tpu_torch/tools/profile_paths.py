@@ -4,8 +4,11 @@
 
 For each path, all under Options.single_precision() — the one-shot MPC
 solve and the adaptive MPC headline (phase1 = 16, P2 = B // 8) at
-B = 8192 on the headline batch, and the dense solve at B = 4096, n = 32,
-q = 64 — one warm call, one timed call (host clock around the
+B = 8192 on the headline batch, the dense solve at B = 4096, n = 32,
+q = 64, the copolymerization reactor (N = 80) at B = 2048 through tier 2,
+the batched riccati="assoc" solve of it at B = 256, and the
+single-instance assoc solve of the double integrator at N = 480 — one
+warm call, one timed call (host clock around the
 synchronized call), then one call under torch.profiler. Prints one JSON
 line per path: the plain wall time, the profiled wall time, the device
 time summed over the kernels that ran (one stream, so they do not
@@ -53,7 +56,9 @@ def profile_path(name, fn):
 
 def main():
     from fbstab_tpu_torch.models.dense_qp import solve_dense_qp_batch
-    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.models.mpc_qp import (
+        solve_mpc_qp, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
     from fbstab_tpu_torch.options import Options
     from fbstab_tpu_torch.parallel.adaptive import (
         solve_mpc_qp_batch_adaptive_device)
@@ -71,6 +76,18 @@ def main():
     profile_path("mpc_adaptive", lambda: solve_mpc_qp_batch_adaptive_device(
         mpc, *mg, opts, phase1_newton_iters=16, phase2_size=1024))
     profile_path("dense", lambda: solve_dense_qp_batch(dense, *dg, opts))
+    copoly = wl.build_copoly(2048, dev)
+    cg = wl.zeros_guess(copoly)
+    profile_path("mpc_copoly",
+                 lambda: solve_mpc_qp_batch(copoly, *cg, opts))
+    small = wl.build_copoly(256, dev)
+    sg = wl.zeros_guess(small)
+    profile_path("mpc_assoc_batch", lambda: solve_mpc_qp_batch(
+        small, *sg, opts, riccati="assoc"))
+    di, _ = double_integrator(480, dtype=torch.float32, device=dev)
+    dig = tuple(g[0] for g in wl.zeros_guess(di))
+    profile_path("longhorizon_assoc", lambda: solve_mpc_qp(
+        di, *dig, opts, riccati="assoc"))
 
 
 if __name__ == "__main__":

@@ -17,9 +17,11 @@ import time
 import numpy as np
 import torch
 
-# bench.py's headline MPC shape and its dense shape (BASELINE config 3).
+# bench.py's headline MPC shape, its dense shape (BASELINE config 3) and
+# the copolymerization reactor's shape (`bench.py copoly`).
 HEADLINE = dict(N=30, nx=8, nu=3, nc=6)
 DENSE = dict(n=32, q=64)
+COPOLY = dict(N=80, nx=18, nu=5, nc=10)
 
 
 def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
@@ -75,6 +77,18 @@ def build_dense(B, n, q, nl, device, dtype=torch.float32):
     from fbstab_tpu_torch.models.dense_qp import dense_qp_data
     return dense_qp_data(**dense_arrays(B, n, q, nl), dtype=dtype,
                          device=device)
+
+
+def build_copoly(B, device):
+    """bench.py copoly's float32 batch: the copolymerization reactor at
+    COPOLY's horizon with x0 = 0.02 N(0, 1) per lane (seed 0)."""
+    from fbstab_tpu_torch.models.mpc_qp import batch_data
+    from fbstab_tpu_torch.models.ocp_fixtures import copolymerization_reactor
+    one, _ = copolymerization_reactor(COPOLY["N"], dtype=torch.float32,
+                                      device=device)
+    x0 = 0.02 * np.random.default_rng(0).standard_normal((B, COPOLY["nx"]))
+    return batch_data(one, B)._replace(
+        x0=torch.tensor(x0, dtype=torch.float32, device=device))
 
 
 def zeros_guess(data):
@@ -162,10 +176,11 @@ def dense_f64_residual(data, sol, alpha):
 # Timing on the card.
 # ------------------------------------------------------------------
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds per call on the card (CUDA events), after one
-    warm call."""
-    fn()
+    warm call (unless the caller has just made one: warm=False)."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()

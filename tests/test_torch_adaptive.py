@@ -187,10 +187,19 @@ def test_host_variant_equals_fixed_size_variant_at_full_capacity():
 
 
 def test_assoc_riccati_is_not_ported():
+    """riccati="assoc" threads through the adaptive wrapper to every stage:
+    the two-phase solve on the associative Riccati step takes the same
+    decisions per lane as on the sequential one (the two steps solve one
+    system and differ at roundoff)."""
     arrays = _mpc(MPC_MIXED[:2])
     data = torch_data(arrays, torch.float64)
     z = tuple(torch.zeros(2, k, dtype=torch.float64)
               for k in dims(arrays)[4:])
-    with pytest.raises(NotImplementedError, match="K5"):
-        tad.solve_mpc_qp_batch_adaptive_device(data, *z, Options(),
-                                               riccati="assoc")
+    out = {r: tad.solve_mpc_qp_batch_adaptive_device(
+        data, *z, Options(abs_tol=1e-8), phase1_newton_iters=2,
+        phase2_size=2, riccati=r) for r in ("assoc", "scan")}
+    (xa, ca), (xs, cs) = out["assoc"], out["scan"]
+    for f in ("eflag", "newton_iters", "prox_iters"):
+        assert getattr(ca, f).tolist() == getattr(cs, f).tolist(), f
+    assert (ca.newton_iters > 2).all()          # phase 2 ran
+    torch.testing.assert_close(xa.z, xs.z, rtol=0, atol=1e-9)

@@ -4,8 +4,10 @@ so tests/torch_host_replay.cpp compiles them with the host compiler, with
 double in place of float, behind the CUDA library's C interface. In float64
 the replayed fused solvers (K2, MPC; K3, dense) must take exactly the plain
 solvers' decisions on every lane: the same exit flag, Newton and proximal
-iteration counts, iterates within 1e-9. The replayed Newton step (K1) must
-match the plain step within 1e-10. This pins the per-lane semantics of the
+iteration counts, iterates within 1e-9; so must the host outer loop of the
+subfused tier on the replayed per-subproblem kernel (K4). The replayed
+Newton step (K1) and scan-level combine (K5) must match their plain
+versions within 1e-10. This pins the per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
 hide on the card (chip_smoke.py bounds the float32 Newton counts there)."""
 
@@ -21,14 +23,18 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    dense_arrays, dense_mixed_batch, dims, headline_arrays, mixed_batch,
-    plant_arrays, torch_data, torch_dense_data)
+    copoly_arrays, dense_arrays, dense_mixed_batch, dims, headline_arrays,
+    mixed_batch, plant_arrays, span_arrays, torch_data, torch_dense_data)
 
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
+from fbstab_tpu_torch.models.mpc_subfused import (  # noqa: E402
+    fbstab_mpc_solve_subfused)
 from fbstab_tpu_torch.models.scaling import (  # noqa: E402
     apply_dense_scaling, apply_mpc_scaling, ruiz_dense_scaling,
     ruiz_mpc_scaling)
 from fbstab_tpu_torch.ops import _build  # noqa: E402
+from fbstab_tpu_torch.ops.assoc_combine_cuda import (  # noqa: E402
+    SpanElement, combine_bl_plain)
 from fbstab_tpu_torch.ops.dense_solve_cuda import (  # noqa: E402
     fbstab_dense_solve_plain)
 from fbstab_tpu_torch.ops.mpc_solve_cuda import (  # noqa: E402
@@ -66,6 +72,12 @@ def lib(tmp_path_factory):
     lib.fb_dense_ws_floats.argtypes = [I] * 3
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I] * 4 + [SolveOpts64] + [P] * 19
+    lib.fb_subproblem_ws_floats.argtypes = [I] * 4
+    lib.fb_subproblem_ws_floats.restype = ctypes.c_longlong
+    lib.fb_mpc_subproblem.argtypes = [I] * 5 + [SolveOpts64] + [P] * 32
+    lib.fb_combine_ws_floats.argtypes = [I]
+    lib.fb_combine_ws_floats.restype = ctypes.c_longlong
+    lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     return lib
 
 
@@ -256,3 +268,90 @@ def test_replayed_dense_solver_takes_the_plain_solvers_decisions(lib, case):
     np.testing.assert_allclose(
         res.numpy(), cp.residual.numpy(), rtol=0,
         atol=1e-9 * (1 + cp.initial_residual.max().item()))
+
+
+def _replayed_subproblem(lib):
+    """One outer iteration on the replayed K4, with the signature of
+    ops.mpc_subproblem_cuda.mpc_subproblem_fused."""
+    def subproblem(prep, xbar, itol_prev, dxn_prev, newton0, done, options):
+        data = prep.data
+        N, nx, nu, nc = tm.mpc_dims(data)
+        B = xbar.z.shape[0]
+        f64 = dict(dtype=torch.float64)
+        i32 = dict(dtype=torch.int32)
+        ins = [to_batch_last(a) for a in (
+            data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
+            data.A, data.B, data.E, data.L, *xbar)]
+        ins += [itol_prev.contiguous(), dxn_prev.contiguous(),
+                newton0.to(**i32).contiguous(), done.to(**i32).contiguous()]
+        xi = [torch.empty(a.shape[1], B, **f64) for a in xbar]
+        Eo, Ek, itol, dxn = (torch.empty(B, **f64) for _ in range(4))
+        newton, lfail, success = (torch.empty(B, **i32) for _ in range(3))
+        ws = torch.empty(lib.fb_subproblem_ws_floats(N, nx, nu, nc), B,
+                         **f64)
+        outs = (*xi, Eo, newton, lfail, Ek, success, itol, dxn, ws)
+        assert lib.fb_mpc_subproblem(N, nx, nu, nc, B,
+                                     solve_opts(options, SolveOpts64),
+                                     *[a.data_ptr() for a in ins],
+                                     *[a.data_ptr() for a in outs]) == 0
+        return (tm.Variable(*(a.t() for a in xi)), Eo, newton, lfail > 0, Ek,
+                success > 0, itol, dxn)
+    return subproblem
+
+
+SUBPROBLEM_CASES = {
+    "mixed_abs_tol_1e-8": (lambda: torch_data(mixed_batch(), torch.float64),
+                           lambda: Options(abs_tol=1e-8)),
+    "mixed_single_precision": (
+        lambda: torch_data(mixed_batch(), torch.float64),
+        Options.single_precision),
+    "copoly_n4_abs_tol_1e-8": (
+        lambda: torch_data(copoly_arrays(3, 4), torch.float64),
+        lambda: Options(abs_tol=1e-8)),
+}
+
+
+@pytest.mark.parametrize("case", list(SUBPROBLEM_CASES))
+def test_subfused_loop_on_replayed_k4_takes_the_plain_solvers_decisions(
+        lib, case):
+    make_data, make_options = SUBPROBLEM_CASES[case]
+    data, opts = make_data(), make_options()
+    N, nx, nu, nc = tm.mpc_dims(data)
+    B = data.x0.shape[0]
+    zeros = lambda n: torch.zeros(B, n, dtype=torch.float64)
+    guess = (zeros((N + 1) * (nx + nu)), zeros((N + 1) * nx),
+             zeros((N + 1) * nc))
+    xs, cs = fbstab_mpc_solve_subfused(data, *guess, opts,
+                                       subproblem=_replayed_subproblem(lib))
+    xp, cp = fbstab_mpc_solve_plain(data, *guess, opts)
+    for name in ("eflag", "newton_iters", "prox_iters"):
+        np.testing.assert_array_equal(getattr(cs, name).numpy(),
+                                      getattr(cp, name).numpy(),
+                                      err_msg=name)
+    for name, got, want in (("z", xs.z, xp.z), ("v", xs.v, xp.v)):
+        w = want.numpy()
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-9,
+                                   atol=1e-9 * (1 + np.abs(w).max()),
+                                   err_msg=name)
+    np.testing.assert_allclose(
+        cs.residual.numpy(), cp.residual.numpy(), rtol=0,
+        atol=1e-9 * (1 + cp.initial_residual.max().item()))
+
+
+@pytest.mark.parametrize("M,n,B", [(3, 4, 5), (2, 18, 3)])
+def test_replayed_combine_matches_plain_combine(lib, M, n, B):
+    left, right = (SpanElement(*(torch.tensor(a) for a in side))
+                   for side in span_arrays(M, n, B))
+    f64 = dict(dtype=torch.float64)
+    out = SpanElement(*(torch.empty(a.shape, **f64) for a in left))
+    ws = torch.empty(lib.fb_combine_ws_floats(n), M * B, **f64)
+    assert lib.fb_assoc_combine(n, M, B, *[a.data_ptr() for a in left],
+                                *[a.data_ptr() for a in right],
+                                *[a.data_ptr() for a in out],
+                                ws.data_ptr()) == 0
+    want = combine_bl_plain(left, right)
+    for name, got, w in zip(SpanElement._fields, out, want):
+        w = w.numpy()
+        scale = 1 + np.abs(w).max(tuple(range(w.ndim - 1)))
+        np.testing.assert_allclose(got.numpy() / scale, w / scale,
+                                   atol=1e-10, err_msg=name)

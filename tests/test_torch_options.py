@@ -68,6 +68,10 @@ PORT_MODULES = [
     "fbstab_tpu_torch.ops.riccati_cuda",
     "fbstab_tpu_torch.ops.mpc_solve_cuda",
     "fbstab_tpu_torch.ops.dense_solve_cuda",
+    "fbstab_tpu_torch.ops.mpc_subproblem_cuda",
+    "fbstab_tpu_torch.ops.assoc_combine_cuda",
+    "fbstab_tpu_torch.ops.assoc_riccati",
+    "fbstab_tpu_torch.models.mpc_subfused",
     "fbstab_tpu_torch.models.ocp_fixtures",
     "fbstab_tpu_torch.parallel.adaptive",
     "fbstab_tpu_torch.workloads",

@@ -1,0 +1,151 @@
+"""PyTorch port: the tier of large stage dimensions, the host outer loop
+of models/mpc_subfused.py on the per-subproblem kernel K4 (on the CPU its
+plain version), against `fbstab_tpu`'s `fbstab_mpc_solve_subfused` with
+its Pallas kernel in interpret mode, as tests/test_subfused.py runs it, in
+float64: the same exit flag, Newton and proximal counts per lane, z within
+1e-9 and the residual within 1e-9 relative. The kernel itself is compared
+with its plain version on the card (marked `cuda`); JAX is imported inside
+the parity tests only."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from torch_parity import (  # noqa: E402
+    copoly_arrays, dims, jax_data, mixed_batch, require_cuda, torch_data)
+
+from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
+from fbstab_tpu_torch.models.mpc_subfused import (  # noqa: E402
+    fbstab_mpc_solve_subfused)
+from fbstab_tpu_torch.ops import mpc_subproblem_cuda as k4  # noqa: E402
+from fbstab_tpu_torch.options import Options  # noqa: E402
+
+# (arrays, tile_b, lowmem) of tests/test_subfused.py: the mixed feasible /
+# infeasible double-integrator batch, and the copolymerization reactor's
+# stage dims at a short horizon with tile padding (B = 3, tile_b = 2).
+CASES = {
+    "double_integrator_mixed": (mixed_batch, 8, False),
+    "copoly_n4": (lambda: copoly_arrays(3, 4), 2, True),
+}
+
+
+def _zeros(arrays, dtype=torch.float64, device="cpu"):
+    B = arrays["x0"].shape[0]
+    return tuple(torch.zeros(B, n, dtype=dtype, device=device)
+                 for n in dims(arrays)[4:])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_subfused_matches_reference_per_lane(case):
+    import jax.numpy as jnp
+    from fbstab_tpu.models.mpc_subfused import (
+        fbstab_mpc_solve_subfused as jax_subfused)
+    from fbstab_tpu.options import Options as JaxOptions
+
+    make, tile_b, lowmem = CASES[case]
+    arrays = make()
+    B = arrays["x0"].shape[0]
+    xr, cr = jax_subfused(
+        jax_data(arrays, jnp.float64),
+        *(jnp.zeros((B, n)) for n in dims(arrays)[4:]),
+        JaxOptions(abs_tol=1e-8), interpret=True, tile_b=tile_b,
+        lowmem=lowmem)
+    xt, ct = fbstab_mpc_solve_subfused(torch_data(arrays, torch.float64),
+                                       *_zeros(arrays), Options(abs_tol=1e-8))
+    if case == "copoly_n4":
+        assert np.all(np.asarray(cr.eflag) == 0)
+    for f in ("eflag", "newton_iters", "prox_iters"):
+        np.testing.assert_array_equal(getattr(ct, f).numpy(),
+                                      np.asarray(getattr(cr, f)), err_msg=f)
+    np.testing.assert_allclose(xt.z.numpy(), np.asarray(xr.z), atol=1e-9)
+    scale = 1.0 + np.abs(np.asarray(xr.v))
+    np.testing.assert_allclose(xt.v.numpy() / scale,
+                               np.asarray(xr.v) / scale, atol=1e-9)
+    np.testing.assert_allclose(ct.residual.numpy(), np.asarray(cr.residual),
+                               rtol=1e-9, atol=1e-12)
+
+
+def test_subfused_matches_lockstep_solver():
+    """The host outer loop on the plain K4 takes the lockstep solver's
+    decisions (the plain version of K2) on the mixed batch under the
+    float32 options."""
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_plain
+    arrays = mixed_batch()
+    data = torch_data(arrays, torch.float64)
+    opts = Options.single_precision()
+    xs, cs = fbstab_mpc_solve_subfused(data, *_zeros(arrays), opts)
+    xp, cp = fbstab_mpc_solve_plain(data, *_zeros(arrays), opts)
+    for f in ("eflag", "newton_iters", "prox_iters"):
+        assert getattr(cs, f).tolist() == getattr(cp, f).tolist(), f
+    torch.testing.assert_close(xs.z, xp.z, rtol=0, atol=1e-12)
+
+
+def test_tier_gate_sends_large_stage_dims_to_k4():
+    """CUDA float32 batches beyond SOLVE_DIMS_CAP and within
+    SUBPROBLEM_DIMS_CAP take tier 2, decided from the shapes alone."""
+    copoly = (80, 18, 5, 10)
+    cuda, f32 = torch.device("cuda"), torch.float32
+    assert tm.mpc_solve_tier(copoly, f32, cuda) == 2
+    assert tm.mpc_solve_tier((62, 2, 1, 6), f32, cuda) == 2
+    assert tm.mpc_solve_tier((30, 8, 3, 6), f32, cuda) == 1
+    assert tm.mpc_solve_tier((81, 18, 5, 10), f32, cuda) == 3
+    assert tm.mpc_solve_tier((80, 18, 5, 12), f32, cuda) == 3
+    assert tm.mpc_solve_tier(copoly, torch.float64, cuda) == 3
+    assert tm.mpc_solve_tier(copoly, f32, "cpu") == 3
+    cap = tm.SUBPROBLEM_DIMS_CAP
+    assert (cap["N"], cap["nx"], cap["nu"], cap["nc"]) == copoly
+
+
+def test_wrapper_takes_plain_version_for_cpu_tensors():
+    arrays = mixed_batch()
+    data = torch_data(arrays, torch.float64)
+    prep = k4.prep_subfused_data(data)
+    assert prep.bl is None
+    z, l, v = _zeros(arrays)
+    xbar = tm.Variable(z=z, l=l, v=v, y=tm._b_vec(data) - tm._gemvA(data, z))
+    B = z.shape[0]
+    row = torch.ones(B, dtype=torch.float64)
+    args = (prep, xbar, row, 10 * row, torch.zeros(B, dtype=torch.int32),
+            torch.tensor([False] * (B - 1) + [True]), Options(abs_tol=1e-8))
+    before = k4.mpc_subproblem_fused.launches
+    got = k4.mpc_subproblem_fused(*args)
+    want = k4.mpc_subproblem_plain(*args)
+    assert k4.mpc_subproblem_fused.launches == before
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # The lane that entered done: xi = xbar, Eo = 0, counters unchanged.
+    xi, Eo, newton, lfail, _, _, _, dxn = got
+    assert Eo[-1].item() == 0.0 and newton[-1].item() == 0
+    assert not lfail[-1] and dxn[-1].item() == 10.0
+    torch.testing.assert_close(xi.z[-1], xbar.z[-1], rtol=0, atol=0)
+    assert (newton[:-1] > 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """The outer loop on K4 against the same loop on the plain version, on
+    the card in float32, at the copolymerization reactor's stage dims
+    (short horizon): exit flags equal on 99% of lanes, Newton counts within
+    +-2 on 90% (float32 knife edges, see chip_smoke.py), z within
+    1e-3 (1 + |z|) where both succeed."""
+    require_cuda()
+    dev = torch.device("cuda", 0)
+    arrays = copoly_arrays(64, 8)
+    data = torch_data(arrays, torch.float32, dev)
+    guess = _zeros(arrays, torch.float32, dev)
+    opts = Options.single_precision()
+    before = k4.mpc_subproblem_fused.launches
+    xk, ck = fbstab_mpc_solve_subfused(data, *guess, opts)
+    torch.cuda.synchronize()
+    assert k4.mpc_subproblem_fused.launches > before
+    xp, cp = fbstab_mpc_solve_subfused(data, *guess, opts,
+                                       subproblem=k4.mpc_subproblem_plain)
+    assert (ck.eflag == cp.eflag).float().mean().item() >= 0.99
+    both = (ck.eflag == 0) & (cp.eflag == 0)
+    assert both.float().mean().item() >= 0.99
+    dn = (ck.newton_iters - cp.newton_iters).abs()[both]
+    assert (dn <= 2).float().mean().item() >= 0.90
+    zerr = (xk.z - xp.z).abs().amax(1) / (1 + xp.z.abs().amax(1))
+    assert zerr[both].max().item() <= 1e-3

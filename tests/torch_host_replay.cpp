@@ -11,7 +11,10 @@
 #define fmaxf fmax
 #define fminf fmin
 #define fabsf fabs
+// The smallest normal double (the plain version's finfo(float64).tiny).
+#define FB_TINY 2.2250738585072014e-308
 
+#include "assoc_combine.cuh"
 #include "dense_solve.cuh"
 #include "mpc_solve.cuh"
 
@@ -117,6 +120,81 @@ int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
     out.res0 = res0 + k;
     fbstab_dense_solve_lane(D, o, P, lane_of(z0, B, k), lane_of(l0, B, k),
                             lane_of(v0, B, k), out, lane_of(ws, B, k));
+  }
+  return 0;
+}
+
+long long fb_subproblem_ws_floats(int N, int nx, int nu, int nc) {
+  return subproblem_ws_floats(MpcDims{N, nx, nu, nc});
+}
+
+int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
+                      const float* q, const float* r, const float* c,
+                      const float* x0, const float* d, const float* Q,
+                      const float* R, const float* S, const float* A,
+                      const float* Bm, const float* E, const float* L,
+                      const float* zk, const float* lk, const float* vk,
+                      const float* yk, const float* itol_prev,
+                      const float* dxn_prev, const int* newton0,
+                      const int* done, float* z, float* l, float* v,
+                      float* y, float* Eo, int* newton, int* lfail,
+                      float* Ek, int* success, float* itol, float* dxn,
+                      float* ws) {
+  const MpcDims D{N, nx, nu, nc};
+  for (int b = 0; b < B; ++b) {
+    MpcProb P;
+    P.Q = lane_of(Q, B, b);
+    P.R = lane_of(R, B, b);
+    P.S = lane_of(S, B, b);
+    P.q = lane_of(q, B, b);
+    P.r = lane_of(r, B, b);
+    P.A = lane_of(A, B, b);
+    P.B = lane_of(Bm, B, b);
+    P.c = lane_of(c, B, b);
+    P.E = lane_of(E, B, b);
+    P.L = lane_of(L, B, b);
+    P.d = lane_of(d, B, b);
+    P.x0 = lane_of(x0, B, b);
+    const Vars xk{lane_of(zk, B, b), lane_of(lk, B, b), lane_of(vk, B, b),
+                  lane_of(yk, B, b)};
+    const Vars xi{lane_of(z, B, b), lane_of(l, B, b), lane_of(v, B, b),
+                  lane_of(y, B, b)};
+    const OuterStep s = fbstab_mpc_subproblem_lane(
+        D, o, P, xk, xi, itol_prev[b], dxn_prev[b], newton0[b], done[b] != 0,
+        lane_of(ws, B, b));
+    Eo[b] = s.Eo;
+    newton[b] = s.newton;
+    lfail[b] = s.lfail ? 1 : 0;
+    Ek[b] = s.Ek;
+    success[b] = s.success ? 1 : 0;
+    itol[b] = s.itol;
+    dxn[b] = s.dxn;
+  }
+  return 0;
+}
+
+long long fb_combine_ws_floats(int n) { return assoc_combine_ws_floats(n); }
+
+int fb_assoc_combine(int n, int M, int B, const float* lP11,
+                     const float* lP12, const float* lP22, const float* lp1,
+                     const float* lp2, const float* rP11, const float* rP12,
+                     const float* rP22, const float* rp1, const float* rp2,
+                     float* oP11, float* oP12, float* oP22, float* op1,
+                     float* op2, float* ws) {
+  const long long MB = (long long)M * B;
+  for (long long t = 0; t < MB; ++t) {
+    const long long m = t / B, b = t % B;
+    const long long mat = m * n * n * B, vec = m * n * B;
+    const Span l{lane_of(lP11 + mat, B, b), lane_of(lP12 + mat, B, b),
+                 lane_of(lP22 + mat, B, b), lane_of(lp1 + vec, B, b),
+                 lane_of(lp2 + vec, B, b)};
+    const Span r{lane_of(rP11 + mat, B, b), lane_of(rP12 + mat, B, b),
+                 lane_of(rP22 + mat, B, b), lane_of(rp1 + vec, B, b),
+                 lane_of(rp2 + vec, B, b)};
+    const Span o{lane_of(oP11 + mat, B, b), lane_of(oP12 + mat, B, b),
+                 lane_of(oP22 + mat, B, b), lane_of(op1 + vec, B, b),
+                 lane_of(op2 + vec, B, b)};
+    assoc_combine_lane(n, l, r, o, lane_of(ws, MB, t));
   }
   return 0;
 }

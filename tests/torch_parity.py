@@ -37,6 +37,37 @@ def mixed_batch():
     return plant_arrays("double_integrator", 6, 8, x0s=x0s)
 
 
+def copoly_arrays(B, N, seed=0):
+    """The copolymerization reactor (nx = 18, nu = 5, nc = 10) at horizon
+    N with x0 = 0.02 N(0, 1) per lane (tests/test_subfused.py's batch,
+    bench.py copoly's at N = 80), as numpy arrays for both packages."""
+    rng = np.random.default_rng(seed)
+    return plant_arrays("copolymerization_reactor", N, B,
+                        x0s=0.02 * rng.standard_normal((B, 18)))
+
+
+def spd_bl(rng, S, n, B, shift):
+    """S x B random SPD n x n matrices (M M' / n + shift I), stage-stacked
+    with the batch last: (S, n, n, B), contiguous."""
+    M = rng.standard_normal((S, B, n, n))
+    P = M @ np.swapaxes(M, -1, -2) / n + shift * np.eye(n)
+    return np.ascontiguousarray(np.moveaxis(P, 1, -1))
+
+
+def span_arrays(M, n, B, seed=0):
+    """Two stacks (left, right) of M span elements of the associative
+    Riccati scan, batch last: SPD diagonal blocks whose sum K is well
+    conditioned, Gaussian off-diagonal blocks and vectors."""
+    rng = np.random.default_rng(seed)
+
+    def span():
+        return (spd_bl(rng, M, n, B, 1.0),
+                0.3 * rng.standard_normal((M, n, n, B)),
+                spd_bl(rng, M, n, B, 0.5),
+                rng.standard_normal((M, n, B)), rng.standard_normal((M, n, B)))
+    return span(), span()
+
+
 def perturbed_x0(arrays, pert, seed=7):
     """bench.plants_contract_check's x0 perturbation; lane 0 nominal."""
     x0 = arrays["x0"][0]
