@@ -18,30 +18,39 @@ fatal on failure:
      equality-constrained batch (n = 16, q = 32, nl = 8) and at the corner
      of DENSE_DIMS_CAP (n = 32, q = 64, nl = 16), with Gaussian equality
      rows;
-  6. the one-shot MPC path, solve_mpc_qp_batch(...,
-     Options.single_precision()), at B = 8192, N = 30, nx = 8, nu = 3,
-     nc = 6 (the bench.build_batch generator, seed 0), checked in float64
-     on the host against the 1e-6 contract, with the kernels' launches;
-  7. the dense path, solve_dense_qp_batch(..., Options.single_precision())
-     at B = 4096, n = 32, q = 64, as `bench.py dense` runs it;
-  8. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
-     phase1_newton_iters=16, phase2_size=max(B // 8, 128)) at B = 8192,
-     as bench.py's headline calls it;
-  9. the plant audit: the four reference plants at B = 128 with perturbed
-     x0, the copolymerization reactor (N = 80) through tier 2 (K4);
- 10. K4 (the per-subproblem kernel) against its plain version, each under
+  6. K4 (the per-subproblem kernel) against its plain version, each under
      the host outer loop of models/mpc_subfused.py, on the equilibrated
      copolymerization reactor (N = 80, B = 256);
- 11. K5 (the scan-level combine of the associative Riccati) against its
+  7. K5 (the scan-level combine of the associative Riccati) against its
      plain version on every level of the suffix scan of one Newton step at
      the copolymerization reactor's dims (B = 256), with the float64 plain
      version as the yardstick of float32 rounding;
- 12. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
+  8. P1, the stage-matvec probe: the bench's mxu mode (N1 = 81, n = 18,
+     B = 128, T = 200), then its three kernels against their plain versions
+     at T = 1 and 8, with times, library calls and bounds at T = 200;
+  9. P3, the double-float probe: the probe tool's run, bit equality with
+     the plain version, exactness against float64, and the same source
+     built with plain operators (does nvcc contract them?);
+ 10. the one-shot MPC path, solve_mpc_qp_batch(...,
+     Options.single_precision()), at B = 8192, N = 30, nx = 8, nu = 3,
+     nc = 6 (the bench.build_batch generator, seed 0), checked in float64
+     on the host against the 1e-6 contract, with the kernels' launches;
+ 11. the dense path, solve_dense_qp_batch(..., Options.single_precision())
+     at B = 4096, n = 32, q = 64, as `bench.py dense` runs it;
+ 12. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
+     phase1_newton_iters=16, phase2_size=max(B // 8, 128)) at B = 8192,
+     as bench.py's headline calls it, with the bench's segments;
+ 13. the warmstart sweep: the receding-horizon loop on the headline
+     plant, B = 8192 scenarios for 8 steps (`bench.py warmstart`);
+ 14. the plant audit: the four reference plants at B = 128 with perturbed
+     x0 (the bench's plants_contract_check), the copolymerization reactor
+     (N = 80) through tier 2 (K4);
+ 15. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
      at B = 2048, as `bench.py copoly` runs it, through tier 2;
- 13. the long-horizon phase: the single-instance solve_mpc_qp on the double
+ 16. the long-horizon phase: the single-instance solve_mpc_qp on the double
      integrator in float32 with riccati="scan" and "assoc" at N = 120, 240
      and 480 (`bench.py longhorizon`'s N), best of 5 each;
- 14. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
+ 17. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
      the copoly batch at B = 256.
 
 The next-to-last line is a JSON object describing each kernel, the last
@@ -66,10 +75,14 @@ import time
 import numpy as np
 import torch
 
+from fbstab_tpu_torch.perf_model import (
+    PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound, combine_flops, dense_residual_flops,
+    dense_step_flops, mpc_residual_flops, nbytes, riccati_flops, solve_flops,
+    stage_matvec_flops)
 from fbstab_tpu_torch.workloads import (
     COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
-    cuda_ms,
-    dense_f64_residual, dense_zeros, mpc_f64_residual, timed, zeros_guess)
+    cuda_ms, dense_f64_residual, dense_zeros, mpc_f64_residual, timed,
+    zeros_guess)
 
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
 # Fused solver (K2, K3) against its plain version, both in float32.
@@ -92,10 +105,6 @@ CONTRACT = 1e-6
 # matrices reach condition numbers of ~1/sigma^2, so float32 rounding alone
 # moves the plain version this far from its float64 run (printed beside).
 K5_TOL = 1e-3
-# One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores and
-# HBM3 bandwidth, for the kernels' least possible times (bound_ms).
-PEAK_F32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
 # --k3-envelope: the shapes (n, q, nl) within the JAX package's dense gate
 # (n <= 64, q <= 128, nl <= 64) at which K3 is surveyed against its plain
 # version; DENSE_DIMS_CAP is the largest box whose corner passes.
@@ -106,60 +115,6 @@ ENVELOPE = ((32, 64, 0), (32, 64, 16), (32, 64, 32), (48, 96, 0),
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the operations over the card's
-    float32 peak and the bytes over its memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-# ------------------------------------------------------------------
-# Operation counts per instance, from the shapes (the dominant products;
-# a multiply-add counts two).
-# ------------------------------------------------------------------
-
-def riccati_flops(N, nx, nu, nc):
-    """One Riccati Newton step (K1): stage Hessians, the factor recursion
-    (Choleskys, triangular solves with matrix right-hand sides, products)
-    and the vector recursions."""
-    stage = (2 * nc * (nx * nx + nu * nu + nu * nx)      # E'GE, L'GL, L'GE
-             + 2 * nx ** 3 + nx ** 3 / 3                 # inv(L L'), chol M
-             + nx * nx * nu + nu ** 3 / 3 + 2 * nu * nu * nx   # SM, SG
-             + nx ** 3 + 2 * nx * nx * nu + nu * nu * nx       # AM, P
-             + nx ** 3 / 3 + 2 * nx * nx * nu + 2 * nx ** 3    # L(i+1)
-             + 12 * (nx * nx + nx * nu + nu * nu))        # vector passes
-    return (N + 1) * stage
-
-
-def mpc_residual_flops(N, nx, nu, nc):
-    ns = nx + nu
-    return (N + 1) * (2 * ns * ns + 6 * nx * ns + 2 * nc * ns + 10 * nc)
-
-
-def dense_step_flops(n, q, nl):
-    f = n * n * q + n ** 3 / 3 + 4 * n * q + 4 * n * n
-    if nl > 0:
-        f += n * n * nl + n * nl * nl + nl ** 3 / 3 + 4 * n * nl + 4 * nl * nl
-    return f
-
-
-def dense_residual_flops(n, q, nl):
-    return 2 * n * n + 4 * n * q + 4 * n * nl + 10 * q
-
-
-def solve_flops(step, residual, newton, prox):
-    """A fused solve: per Newton iteration one step, the inner residual,
-    the outer residual and one linesearch trial (the fewest: a full step
-    accepted); per proximal iteration the outer residual and the
-    infeasibility check (about two residuals)."""
-    return newton * (step + 3 * residual) + (prox + 1) * 3 * residual
 
 
 # ------------------------------------------------------------------
@@ -375,14 +330,17 @@ def k3_envelope(device):
 
 
 def reset_launches():
+    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
     from fbstab_tpu_torch.ops.assoc_combine_cuda import combine_bl
     from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
+    from fbstab_tpu_torch.ops.df_probe_cuda import df_probe
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
     from fbstab_tpu_torch.ops.mpc_subproblem_cuda import mpc_subproblem_fused
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     kernels = dict(K1=riccati_newton_step_batched, K2=fbstab_mpc_solve_fused,
                    K3=fbstab_dense_solve_fused, K4=mpc_subproblem_fused,
-                   K5=combine_bl)
+                   K5=combine_bl, P1_perlane=p1.cuda_perlane,
+                   P1_shared=p1.cuda_shared, P1_tc=p1.tc_shared, P3=df_probe)
     for k in kernels.values():
         k.launches = 0
     return lambda: {name: k.launches for name, k in kernels.items()}
@@ -501,12 +459,10 @@ def phase_dense_main(B, device):
 
 
 def phase_adaptive(B, device, oneshot_qps):
-    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
-    from fbstab_tpu_torch.models.refine import refine_solution_mpc
-    from fbstab_tpu_torch.models.scaling import ruiz_mpc_scaling
+    from fbstab_tpu_torch.bench import measure_segments
     from fbstab_tpu_torch.options import Options
     from fbstab_tpu_torch.parallel.adaptive import (
-        solve_batch_adaptive_device, solve_mpc_qp_batch_adaptive_device)
+        solve_mpc_qp_batch_adaptive_device)
 
     opts = Options.single_precision()
     data = build_batch(B, **HEADLINE, device=device)
@@ -525,73 +481,27 @@ def phase_adaptive(B, device, oneshot_qps):
           f"residual_f64_max {res64.max():.3e} | launches K2 {n['K2']} K1 "
           f"{n['K1']}")
 
-    # One more call through the generic wrapper, each stage timed.
-    stages = []
-
-    def solve(d, z, l, v, o, **kw):
-        (xs, cs), ms = timed(lambda: solve_mpc_qp_batch(d, z, l, v, o, **kw))
-        retry = (cs.eflag == 2) | (cs.eflag == 6)
-        stages.append((z.shape[0], int(retry.sum()), ms))
-        return xs, cs
-
-    def refine(*a, **k):
-        out, stages_ms["refine"] = timed(lambda: refine_solution_mpc(*a, **k))
-        return out
-
-    def scaling(d):
-        out, stages_ms["ruiz"] = timed(lambda: ruiz_mpc_scaling(d))
-        return out
-
-    stages_ms = {}
-    solve_batch_adaptive_device(
-        solve, refine, data, *guess, opts, phase1_newton_iters=phase1,
-        phase2_size=P2, make_scaling=scaling)
-    fired = len(stages) > 2
-    print(f"adaptive breakdown (ms): ruiz {stages_ms['ruiz']:.1f} | "
-          + " | ".join(f"stage {i} (B={b}) {ms:.1f}, {k} stragglers out"
-                       for i, (b, k, ms) in enumerate(stages))
-          + f" | refine {stages_ms['refine']:.1f} | phase-2 stragglers "
-          f"{stages[0][1]} (capacity {P2}), fallback "
-          f"{'fired' if fired else 'not fired'}")
+    seg = measure_segments(data, *guess, opts, phase1, P2, min(times))
+    print("adaptive breakdown (ms; bench.measure_segments, the wrapper's "
+          "own stages through its hooks, best of 3 less the null "
+          "dispatch): " + " | ".join(
+              f"{k} {v}" for k, v in seg.items())
+          + f" | fallback {'fired' if seg['retry_count'] > P2 else 'not fired'}"
+          f" (capacity {P2})")
     if n["K2"] < 1 or n["K1"] < 1:
         fail("adaptive MPC headline did not launch K1 and K2")
     return n
 
 
 def phase_plants(B, device):
-    from fbstab_tpu_torch.models import ocp_fixtures
-    from fbstab_tpu_torch.models.mpc_qp import (
-        batch_data, mpc_dims, solve_mpc_qp_batch)
-    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.bench import plants_contract_check
 
-    opts = Options.single_precision()
-    plants = [(ocp_fixtures.double_integrator, 20, 0.05),
-              (ocp_fixtures.servo_motor, 25, 0.05),
-              (ocp_fixtures.spacecraft_relative_motion, 40, 0.001),
-              (ocp_fixtures.copolymerization_reactor, 80, 0.05)]
-    parts, ok = [], True
-    for plant, N, pert in plants:
-        one, _ = plant(N, dtype=torch.float32, device=device)
-        _, nx, _, _ = mpc_dims(one)
-        data = batch_data(one, B)
-        rng = np.random.default_rng(7)
-        x0 = one.x0[0].cpu().numpy().astype(np.float64)
-        scale = float(np.max(np.abs(x0))) or 0.02
-        offs = pert * scale * np.abs(rng.standard_normal((B, nx)))
-        offs[0] = 0.0            # lane 0 is the reference's own instance
-        data = data._replace(x0=torch.tensor(
-            x0[None] + offs, dtype=torch.float32, device=device))
-        x, core = solve_mpc_qp_batch(data, *zeros_guess(data), opts)
-        good = (core.eflag == 0).cpu().numpy()
-        res64 = mpc_f64_residual(data, x, opts.alpha)
-        worst = float(res64[good].max()) if good.any() else float("nan")
-        plant_ok = (bool(good[0]) and res64[0] <= CONTRACT
-                    and bool(np.all(res64[good] <= CONTRACT)))
-        ok = ok and plant_ok
-        parts.append(f"{plant.__name__} N={N}: nominal {res64[0]:.2e} "
-                     f"success {good.mean():.3f} worst solved {worst:.2e}")
-    print("plants: B=%d " % B + "; ".join(parts))
-    if not ok:
+    summary = plants_contract_check(B, device, verbose=False)
+    print("plants: B=%d " % B + "; ".join(
+        f"{name}: nominal {p['nominal_res64']:.2e} success "
+        f"{p['success_frac']:.3f} worst solved {p['perturbed_res64_max']:.2e}"
+        for name, p in summary["per_plant"].items()))
+    if not summary["contract_met"]:
         fail("plant audit misses the contract")
 
 
@@ -633,12 +543,6 @@ def phase_k4(B, device):
           f", one linesearch trial each)")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-
-
-def combine_flops(n):
-    """One combine per (pair, instance): the factor of K, the solves of its
-    2n + 1 right-hand sides, the six products."""
-    return n ** 3 / 3 + 2 * n * n * (2 * n + 1) + 6 * n ** 3 + 4 * n * n
 
 
 def phase_k5(B, device):
@@ -822,6 +726,178 @@ def phase_assoc_batch(B, device):
     return n
 
 
+def phase_p1(device):
+    """P1, the stage-matvec probe: the bench's mxu mode (its path, whose
+    launches are counted), then each form against its plain version at
+    T = 1 and 8 (the iterate underflows to zero long before the probe's
+    T = 200), the times at T = 200, the library calls and the bounds."""
+    from fbstab_tpu_torch import bench
+    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
+
+    counts = reset_launches()
+    record, diag = bench.run_mxu(device=device)
+    n = counts()
+    print(f"P1: {diag}")
+    T, N1, n_, B = p1.T_DEFAULT, p1.N1, p1.N_STAGE, p1.LANES
+    scale = p1.scale_of(n_)
+    Mp, Ms, w0 = p1.probe_inputs(N1, n_, B, device)
+    mats = dict(perlane=Mp, shared=Ms)
+    plain = dict(perlane=p1.perlane_plain, shared=p1.shared_plain)
+    rows, ok = {}, True
+    for name, kernel, kind in bench.mxu_forms():
+        M = mats[kind]
+        errs, max_abs = [], 0.0
+        for t in (1, 8):
+            got = kernel(M, w0, t, scale)
+            want = plain[kind](M, w0, t, scale)
+            want64 = plain[kind](M.double(), w0.double(), t, scale)
+            peak = want.abs().max().item()
+            err = (got - want).abs().max().item() / peak
+            gap = (want.double() - want64).abs().max().item() / peak
+            tol = (p1.tc_tol(t, n_, gap) if kernel is p1.tc_shared
+                   else p1.CUDA_CORE_TOL)
+            max_abs = max(max_abs, (got - want).abs().max().item())
+            errs.append(f"T={t} {err:.3e} (tol {tol:.3e}; float32 plain vs "
+                        f"float64 {gap:.3e})")
+            ok = ok and bool(np.isfinite(err)) and err <= tol
+        ms = cuda_ms(lambda: kernel(M, w0, T, scale), 5)
+        plain_ms = cuda_ms(lambda: plain[kind](M, w0, T, scale), 3)
+        flops = stage_matvec_flops(N1, n_, B, T)
+        moved = nbytes(M, w0, w0)
+        bound_ms, bound_by = bound(
+            flops, moved, PEAK_TF32_FLOPS if kernel is p1.tc_shared
+            else PEAK_F32_FLOPS)
+        f32_bound_ms, _ = bound(flops, moved)
+        # The library time: one PyTorch call per application, on M with
+        # the scale folded in (einsum per lane, bmm shared).
+        Mscaled = M * scale
+        w3 = w0.reshape(N1, n_, B)
+        call = ((lambda w: torch.einsum("sijb,sjb->sib", Mscaled, w))
+                if kind == "perlane" else (lambda w: torch.bmm(Mscaled, w)))
+
+        def chain():
+            w = w3
+            for _ in range(T):
+                w = call(w)
+            return w
+        lib = {"einsum" if kind == "perlane" else "bmm": chain}
+        lib_ms = {}
+        for tf32 in (False, True) if kind == "shared" else (False,):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            for k, fn in lib.items():
+                lib_ms[k + (" tf32" if tf32 else "")] = cuda_ms(fn, 3)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        library_ms = (lib_ms["bmm tf32"] if kernel is p1.tc_shared
+                      else next(iter(lib_ms.values())))
+        print(f"P1 {name} ({kernel.__name__}): vs plain "
+              + "; ".join(errs) + f" | T={T}: kernel {ms:.4f} ms, "
+              f"{record[name + '_ns']} ns per stage-matvec (host clock), "
+              f"plain {plain_ms:.3f} ms, library " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in lib_ms.items())
+              + f", bound {bound_ms:.4f} ms ({bound_by}"
+              + (f"; TF32 tensor peak; {f32_bound_ms:.4f} ms at the float32 "
+                 "peak" if kernel is p1.tc_shared else "") + ")")
+        rows[kernel.__name__] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms)
+    if not ok:
+        fail("a P1 form disagrees with its plain version")
+    if min(n["P1_perlane"], n["P1_shared"], n["P1_tc"]) < 1:
+        fail("the bench's mxu mode did not launch the three P1 kernels")
+    return rows, n
+
+
+def phase_p3(device):
+    """P3, the double-float probe: the probe tool's run (its path, whose
+    launch is counted), bit equality with the plain version, exactness
+    against float64, and the contraction question: the same source built
+    with plain operators, run and its SASS read for FFMA."""
+    from fbstab_tpu_torch.ops import df_probe_cuda as p3
+    from fbstab_tpu_torch.ops._build import library_path
+    from fbstab_tpu_torch.tools import df_probe as tool
+
+    counts = reset_launches()
+    verdict = tool.probe(device)
+    n = counts()
+    a, b = p3.probe_inputs(device)
+    got = p3.df_probe(a, b)
+    want = p3.df_probe_plain(a, b)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    max_abs = max((g - w).abs().max().item() for g, w in zip(got, want))
+    plain_lib, plain_path = p3.plain_ops_library()
+    v_plain = p3.exactness(a, b, p3.launch_df_probe(plain_lib, a, b))
+    ffma = p3.sass_ffma_count(library_path())
+    ffma_plain = p3.sass_ffma_count(plain_path)
+    ms = cuda_ms(lambda: p3.df_probe(a, b), 20)
+    plain_ms = cuda_ms(lambda: p3.df_probe_plain(a, b), 5)
+    R, C = a.shape
+    # two_sum 6, two_prod 17 and a dot step 31 operations per element.
+    bound_ms, bound_by = bound(54 * R * C, nbytes(a, b, *got))
+    fmt = lambda v: (f"two_sum exact: {v['two_sum_exact']}  two_prod exact: "
+                     f"{v['two_prod_exact']}  dot df rel err: "
+                     f"{v['dot_rel_err']:.2e} (plain f32: "
+                     f"{v['f32_dot_rel_err']:.2e})")
+    print(f"P3: [cuda] {fmt(verdict)} | bit-equal to the plain version: "
+          f"{same} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    print(f"P3 contraction: intrinsics (the library): FFMA in the kernel's "
+          f"SASS {ffma}; plain operators with the library's flags: FFMA "
+          f"{ffma_plain}, {fmt(v_plain)}")
+    if not (same and verdict["two_sum_exact"] and verdict["two_prod_exact"]):
+        fail("P3 is not exact or not bit-equal to its plain version")
+    if n["P3"] < 1:
+        fail("the probe tool did not launch P3")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), n
+
+
+def phase_warmstart(B, device, steps=8):
+    """bench.py warmstart's sweep: simulate_batch on the headline plant
+    (lane 0 of the batch) for B scenarios and `steps` control steps with
+    shifted warmstarts, through the one-shot dispatch (K2, then K1 in the
+    refinement). Every step needs success >= 0.99 and the refined residual
+    <= 1e-6 on its SUCCESS lanes. Also times the part of a step that
+    relays the shared data (the Ruiz diagonals applied, then the batch-last
+    copy K2 reads), which every step repeats."""
+    from fbstab_tpu_torch.models.mpc_qp import MpcQPData
+    from fbstab_tpu_torch.models.receding_horizon import simulate_batch
+    from fbstab_tpu_torch.models.scaling import (
+        apply_mpc_scaling, ruiz_mpc_scaling)
+    from fbstab_tpu_torch.ops.riccati_cuda import to_batch_last
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    dataB = build_batch(B, **HEADLINE, device=device)
+    shared = MpcQPData(*(a[:1] for a in dataB))
+    counts = reset_launches()
+    res, t = timed(lambda: simulate_batch(shared, steps, dataB.x0, opts))
+    n = counts()
+    good = res.eflag == 0
+    succ = good.float().mean(0)
+    worst = torch.where(good, res.residual,
+                        torch.zeros_like(res.residual)).amax(0)
+    ni = res.newton_iters.float()
+    batch = MpcQPData(*(a.expand((B,) + a.shape[1:]) for a in shared))
+    one = ruiz_mpc_scaling(shared)
+    scal = type(one)(*(a.expand((B,) + a.shape[1:]) for a in one))
+    relay = lambda: [to_batch_last(a)
+                     for a in apply_mpc_scaling(batch, scal)]
+    relay()
+    _, t_relay = timed(relay)
+    print(f"warmstart: B={B} steps={steps} QPs/s {B * steps / (t / 1e3):.1f}"
+          f" ({t / 1e3:.3f} s, one call) success per step min "
+          f"{succ.min().item():.4f} | refined residual on SUCCESS lanes max "
+          f"{worst.max().item():.3e} | mean newton step 0 "
+          f"{ni[:, 0].mean().item():.2f}, steps 1-{steps - 1} "
+          f"{ni[:, 1:].mean().item():.2f} | launches K2 {n['K2']} K1 "
+          f"{n['K1']} | per-step relay of the shared data {t_relay:.2f} ms")
+    if succ.min().item() < 0.99 or worst.max().item() > CONTRACT:
+        fail("the warmstart sweep misses the contract")
+    if n["K2"] < 1 or n["K1"] < 1:
+        fail("the warmstart sweep did not launch K1 and K2")
+    return n
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the kernels run only on the card")
@@ -841,16 +917,20 @@ def main():
     k3 = phase_k3(device)
     k4 = phase_k4(256, device)
     k5 = phase_k5(256, device)
+    p1, n_mxu = phase_p1(device)
+    p3, n_df = phase_p3(device)
     qps, n_oneshot = phase_main(8192, device)
     n_dense = phase_dense_main(4096, device)
     n_adapt = phase_adaptive(8192, device, qps)
+    n_warm = phase_warmstart(8192, device)
     phase_plants(128, device)
     n_copoly = phase_copoly(2048, device)
     n_long = phase_longhorizon(device)
     n_assoc = phase_assoc_batch(256, device)
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
-                 longhorizon=n_long)
+                 longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
+                 mpc_warmstart=n_warm)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
@@ -873,6 +953,18 @@ def main():
              source="fbstab_tpu_torch/csrc/assoc_combine.cu",
              replaces="fbstab_tpu/ops/assoc_riccati.py:388",
              launches=n_assoc["K5"], launches_by_path=by_path("K5"), **k5),
+    ] + [
+        dict(name=f"mxu_probe_{form}", route="cuda",
+             source="fbstab_tpu_torch/csrc/mxu_probe.cu",
+             replaces="bench.py:998, scratch/tpu_mxu.py:104",
+             launches=n_mxu[key], launches_by_path=by_path(key), **p1[form])
+        for form, key in (("cuda_perlane", "P1_perlane"),
+                          ("cuda_shared", "P1_shared"), ("tc_shared", "P1_tc"))
+    ] + [
+        dict(name="df_probe", route="cuda",
+             source="fbstab_tpu_torch/csrc/df_probe.cu",
+             replaces="scratch/tpu_df_kernel.py:77", launches=n_df["P3"],
+             launches_by_path=by_path("P3"), **p3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@ the combine of the associative Riccati scan (ops/assoc_combine_cuda.py,
 `riccati="assoc"` and the single-instance `solve_mpc_qp`) and the fused
 dense solver (ops/dense_solve_cuda.py); on the CPU, through their plain
 PyTorch versions. Data goes on the card unless the caller passes device="cpu".
+The receding-horizon loop (models/receding_horizon.py) runs closed-loop
+sweeps on these solves, and `python -m fbstab_tpu_torch.bench` measures
+them with the JAX package's bench modes.
 The JAX package `fbstab_tpu` is the reference this package is tested
 against; nothing here imports JAX.
 """

@@ -1,0 +1,68 @@
+// Double-float error-free transforms in device code: Knuth's two_sum,
+// Dekker's two_prod and a compensated dot product, in the form of
+// fbstab_tpu_torch/ops/doublefloat.py (and scratch/tpu_df_kernel.py).
+//
+// The transforms are exact only if every operation rounds on its own. The
+// library is built with nvcc's default --fmad=true, which lets the compiler
+// contract a product and a sum into one FFMA; in Dekker's split
+// (c * a - a) and in the error term (a_hi * b_hi - p) that changes the
+// result. So every operation here is a rounding intrinsic, __fadd_rn,
+// __fsub_rn or __fmul_rn, which nvcc never contracts or reassociates,
+// whatever the flags. They were chosen over fmaf(a, b, -p) for the error
+// term because they keep the exact operation sequence of the plain PyTorch
+// version, so kernel and plain version agree bit for bit, also where
+// Dekker's split and an FMA would round differently (at the edge of the
+// float range). Define FB_DF_PLAIN_OPS to compile the same code with the
+// plain operators (the question whether nvcc contracts them); host
+// compilers see plain operators and must be run with -ffp-contract=off.
+#pragma once
+
+#if defined(__CUDACC__)
+#define FB_DF_FN __device__ __forceinline__
+#else
+#define FB_DF_FN inline
+#endif
+
+#if defined(__CUDACC__) && !defined(FB_DF_PLAIN_OPS)
+#define FB_DF_ADD(a, b) __fadd_rn((a), (b))
+#define FB_DF_SUB(a, b) __fsub_rn((a), (b))
+#define FB_DF_MUL(a, b) __fmul_rn((a), (b))
+#else
+#define FB_DF_ADD(a, b) ((a) + (b))
+#define FB_DF_SUB(a, b) ((a) - (b))
+#define FB_DF_MUL(a, b) ((a) * (b))
+#endif
+
+// s + e == a + b exactly, s = fl(a + b).
+FB_DF_FN void df_two_sum(float a, float b, float& s, float& e) {
+  s = FB_DF_ADD(a, b);
+  const float bb = FB_DF_SUB(s, a);
+  e = FB_DF_ADD(FB_DF_SUB(a, FB_DF_SUB(s, bb)), FB_DF_SUB(b, bb));
+}
+
+// p + e == a * b exactly, p = fl(a * b) (Dekker, split 2^12 + 1).
+FB_DF_FN void df_two_prod(float a, float b, float& p, float& e) {
+  const float c = 4097.0f;
+  p = FB_DF_MUL(a, b);
+  const float a_big = FB_DF_MUL(c, a);
+  const float a_hi = FB_DF_SUB(a_big, FB_DF_SUB(a_big, a));
+  const float a_lo = FB_DF_SUB(a, a_hi);
+  const float b_big = FB_DF_MUL(c, b);
+  const float b_hi = FB_DF_SUB(b_big, FB_DF_SUB(b_big, b));
+  const float b_lo = FB_DF_SUB(b, b_hi);
+  e = FB_DF_ADD(
+      FB_DF_ADD(FB_DF_ADD(FB_DF_SUB(FB_DF_MUL(a_hi, b_hi), p),
+                          FB_DF_MUL(a_hi, b_lo)),
+                FB_DF_MUL(a_lo, b_hi)),
+      FB_DF_MUL(a_lo, b_lo));
+}
+
+// One step of the compensated dot product: (hi, lo) += a * b.
+FB_DF_FN void df_dot_step(float a, float b, float& hi, float& lo) {
+  float ph, pl, e1, e2;
+  df_two_prod(a, b, ph, pl);
+  df_two_sum(hi, ph, hi, e1);
+  lo = FB_DF_ADD(lo, FB_DF_ADD(e1, pl));
+  df_two_sum(hi, lo, hi, e2);
+  lo = e2;
+}

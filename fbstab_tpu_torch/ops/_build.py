@@ -123,6 +123,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I, I, I] + [P] * 16 + [P]
     lib.fb_assoc_combine.restype = I
+    lib.fb_mxu_max_n.argtypes = []
+    lib.fb_mxu_max_n.restype = I
+    lib.fb_mxu_probe.argtypes = [I, I, I, I, I, F] + [P] * 3 + [P]
+    lib.fb_mxu_probe.restype = I
+    bind_df_probe(lib)
+    return lib
+
+
+def bind_df_probe(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares fb_df_probe (also for a library built by build_variant)."""
+    lib.fb_df_probe.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                                + [ctypes.c_void_p])
+    lib.fb_df_probe.restype = ctypes.c_int
     return lib
 
 
@@ -133,6 +146,33 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         _compile(path)
     return _bind(ctypes.CDLL(str(path)))
+
+
+def build_variant(source: str, defines: tuple = ()) -> Path:
+    """Builds one source of csrc/ alone, with extra `-D` flags and the
+    library's other flags, into its own shared library under BUILD_DIR
+    (keyed by a hash like the library's); returns its path. For checks
+    that compare a kernel compiled two ways."""
+    src = SRC_DIR / source
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    for p in [src] + _sources()[1]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        flags = [f"-D{d}" for d in defines]
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-shared",
+                               "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} {flags} "
+                               f"({proc.returncode}):\n{proc.stderr}"
+                               f"{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+        os.replace(tmp, out)
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -57,7 +57,9 @@ def reliable_leaning(options: Options) -> Options:
     )
 
 
-def _retry_mask(core):
+def retry_mask(core):
+    """The lanes a later stage re-solves: MAXITERATIONS or
+    LINEAR_SOLVER_FAILED exits."""
     return ((core.eflag == int(ExitFlag.MAXITERATIONS))
             | (core.eflag == int(ExitFlag.LINEAR_SOLVER_FAILED)))
 
@@ -120,7 +122,7 @@ def solve_batch_adaptive(solve_batch: Callable, data, z0, l0, v0,
         return x, core
 
     x1, core1 = solve_batch(data, z0, l0, v0, opts1)
-    retry = _retry_mask(core1)
+    retry = retry_mask(core1)
     k = int(retry.sum())
     if k == 0:
         return finish(x1, core1)
@@ -200,7 +202,7 @@ def solve_batch_adaptive_schedule(solve_batch, refine_fn, data, z0, l0,
     count, cap_last = None, None
     for budget, cap, prof in stages[1:]:
         o = _stage_options(opts, budget, prof)
-        retry = _retry_mask(core)
+        retry = retry_mask(core)
         count = int(retry.sum())
         P = min(cap, B)
         cap_last = P
@@ -227,7 +229,7 @@ def solve_batch_adaptive_schedule(solve_batch, refine_fn, data, z0, l0,
         xf, coref = solve_batch(data, x.z, x.l, x.v,
                                 _stage_options(opts, None, "reliable"),
                                 **skw)
-        still = _retry_mask(core)
+        still = retry_mask(core)
 
         def pick(a, b):
             if not _is_lane(a):

@@ -6,8 +6,10 @@ For each path, all under Options.single_precision() — the one-shot MPC
 solve and the adaptive MPC headline (phase1 = 16, P2 = B // 8) at
 B = 8192 on the headline batch, the dense solve at B = 4096, n = 32,
 q = 64, the copolymerization reactor (N = 80) at B = 2048 through tier 2,
-the batched riccati="assoc" solve of it at B = 256, and the
-single-instance assoc solve of the double integrator at N = 480 — one
+the batched riccati="assoc" solve of it at B = 256, the
+single-instance assoc solve of the double integrator at N = 480, and the
+receding-horizon sweep of the headline plant at B = 8192 for 8 steps
+(`bench.py warmstart`) — one
 warm call, one timed call (host clock around the
 synchronized call), then one call under torch.profiler. Prints one JSON
 line per path: the plain wall time, the profiled wall time, the device
@@ -57,7 +59,8 @@ def profile_path(name, fn):
 def main():
     from fbstab_tpu_torch.models.dense_qp import solve_dense_qp_batch
     from fbstab_tpu_torch.models.mpc_qp import (
-        solve_mpc_qp, solve_mpc_qp_batch)
+        MpcQPData, solve_mpc_qp, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.models.receding_horizon import simulate_batch
     from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
     from fbstab_tpu_torch.options import Options
     from fbstab_tpu_torch.parallel.adaptive import (
@@ -88,6 +91,9 @@ def main():
     dig = tuple(g[0] for g in wl.zeros_guess(di))
     profile_path("longhorizon_assoc", lambda: solve_mpc_qp(
         di, *dig, opts, riccati="assoc"))
+    shared = MpcQPData(*(a[:1] for a in mpc))
+    profile_path("mpc_warmstart", lambda: simulate_batch(
+        shared, 8, mpc.x0, opts))
 
 
 if __name__ == "__main__":

@@ -193,11 +193,14 @@ def cuda_ms(fn, reps, warm=True):
 
 
 def timed(fn):
-    """(fn(), host milliseconds) around synchronized work."""
-    torch.cuda.synchronize()
+    """(fn(), host milliseconds) around synchronized work (the card is
+    synchronized where there is one)."""
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, (time.perf_counter() - t0) * 1e3
 
 

@@ -9,7 +9,10 @@ subfused tier on the replayed per-subproblem kernel (K4). The replayed
 Newton step (K1) and scan-level combine (K5) must match their plain
 versions within 1e-10. This pins the per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
-hide on the card (chip_smoke.py bounds the float32 Newton counts there)."""
+hide on the card (chip_smoke.py bounds the float32 Newton counts there).
+The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
+float32: the replay is built with -ffp-contract=off, so the host compiler
+contracts nothing, and they must be exact."""
 
 import ctypes
 import shutil
@@ -78,6 +81,7 @@ def lib(tmp_path_factory):
     lib.fb_combine_ws_floats.argtypes = [I]
     lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
+    lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
     return lib
 
 
@@ -355,3 +359,23 @@ def test_replayed_combine_matches_plain_combine(lib, M, n, B):
         scale = 1 + np.abs(w).max(tuple(range(w.ndim - 1)))
         np.testing.assert_allclose(got.numpy() / scale, w / scale,
                                    atol=1e-10, err_msg=name)
+
+
+def test_replayed_df_transforms_are_exact_and_bit_equal_to_plain(lib):
+    """doublefloat.cuh's two_sum, two_prod and compensated dot in float32
+    on the P3 probe's inputs (magnitudes spread up to 2^30): exact against
+    float64, and bit for bit ops/doublefloat.py's plain version."""
+    from fbstab_tpu_torch.ops.df_probe_cuda import (
+        df_probe_plain, exactness, probe_inputs)
+
+    a, b = probe_inputs(device="cpu")
+    R, C = a.shape
+    outs = [torch.empty(R, C) for _ in range(4)] + [
+        torch.empty(1, C) for _ in range(2)]
+    assert lib.fb_df_probe(R, C, a.data_ptr(), b.data_ptr(),
+                           *[o.data_ptr() for o in outs]) == 0
+    v = exactness(a, b, outs)
+    assert v["two_sum_exact"] and v["two_prod_exact"]
+    assert v["dot_rel_err"] < 1e-3 * v["f32_dot_rel_err"]
+    for got, want in zip(outs, df_probe_plain(a, b)):
+        assert torch.equal(got, want)

@@ -76,6 +76,12 @@ PORT_MODULES = [
     "fbstab_tpu_torch.parallel.adaptive",
     "fbstab_tpu_torch.workloads",
     "fbstab_tpu_torch.tools.profile_paths",
+    "fbstab_tpu_torch.bench",
+    "fbstab_tpu_torch.perf_model",
+    "fbstab_tpu_torch.models.receding_horizon",
+    "fbstab_tpu_torch.ops.mxu_probe_cuda",
+    "fbstab_tpu_torch.ops.df_probe_cuda",
+    "fbstab_tpu_torch.tools.df_probe",
     "chip_smoke",
 ]
 

@@ -1,10 +1,33 @@
 // The device code of the PyTorch port's CUDA kernels
-// (fbstab_tpu_torch/csrc/*.cuh) compiled as host C++ in float64: one loop
+// (fbstab_tpu_torch/csrc/*.cuh) compiled as host C++ in float64 (the
+// double-float transforms of P3 in float32): one loop
 // iteration per instance, behind the C interface of the CUDA library with
 // double in place of float. tests/test_torch_device_code.py builds it with
 // the host compiler and holds it lane for lane against the plain float64
 // versions of the kernels.
 #include <math.h>
+
+// The double-float transforms of P3 stay in float32: their exactness is
+// what is replayed. The host compiler sees doublefloat.cuh's plain
+// operators, so the replay is built with -ffp-contract=off.
+#include "doublefloat.cuh"
+
+extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
+                           float* s, float* e, float* p, float* pe,
+                           float* dh, float* dl) {
+  for (int c = 0; c < C; ++c) {
+    float hi = 0.0f, lo = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const long long k = (long long)r * C + c;
+      df_two_sum(a[k], b[k], s[k], e[k]);
+      df_two_prod(a[k], b[k], p[k], pe[k]);
+      df_dot_step(a[k], b[k], hi, lo);
+    }
+    dh[c] = hi;
+    dl[c] = lo;
+  }
+  return 0;
+}
 
 #define float double
 #define sqrtf sqrt
