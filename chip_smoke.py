@@ -12,7 +12,9 @@ fatal on failure:
   3. K1 (Riccati Newton step) against its plain version at the headline
      shape, on iterates from a few plain Newton steps;
   4. K2 (fused MPC solver) against its plain version on the equilibrated
-     headline problem;
+     headline problem (B = 1024), with its design line: threads per team,
+     teams per block, registers, spill bytes, dynamic shared bytes,
+     resident blocks per SM;
   5. K3 (fused dense solver) against its plain version on the equilibrated
      bench.py dense problem (seed 1, n = 32, q = 64, nl = 0), on an
      equality-constrained batch (n = 16, q = 32, nl = 8) and at the corner
@@ -20,7 +22,7 @@ fatal on failure:
      rows;
   6. K4 (the per-subproblem kernel) against its plain version, each under
      the host outer loop of models/mpc_subfused.py, on the equilibrated
-     copolymerization reactor (N = 80, B = 256);
+     copolymerization reactor (N = 80, B = 256), with its design line;
   7. K5 (the scan-level combine of the associative Riccati) against its
      plain version on every level of the suffix scan of one Newton step at
      the copolymerization reactor's dims (B = 256), with the float64 plain
@@ -53,9 +55,10 @@ fatal on failure:
  17. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
      the copoly batch at B = 256.
 
-The next-to-last line is a JSON object describing each kernel, the last
-line {"ok": true, "device": {...}}. Without a CUDA device the script exits
-non-zero and prints no result.
+The next-to-last line is a JSON object describing each kernel (with its
+`design`: one thread per instance, or a team of T threads per instance on
+instance-major data), the last line {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 
 With --k3-envelope it runs phases 1 and 2, then holds K3 against its plain
 version at B = 256 at each ENVELOPE shape within the JAX package's dense
@@ -145,6 +148,22 @@ def phase_build():
              if "registers" in ln or "spill" in ln]
     print(f"build: {secs:.1f} s ({_build.library_path().name}); ptxas: "
           + " | ".join(usage))
+
+
+def design_line(name, source, info_fn, dims):
+    """Prints a fused MPC kernel's launch shape at `dims` (its C info
+    function) and its ptxas lines; returns the row's `design`."""
+    from fbstab_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    info = _build.kernel_info(getattr(lib, info_fn), *dims)
+    print(f"{name} design: a team of {info['team']} threads per instance, "
+          f"{info['teams_per_block']} teams per block; "
+          f"{info['registers']} registers and {info['local_bytes']} local "
+          f"bytes per thread; {info['smem_bytes']} bytes of dynamic shared "
+          f"memory per block; {info['blocks_per_sm']} resident blocks per "
+          f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source)))
+    return f"team of {info['team']} per instance, instance-major"
 
 
 def phase_k1(B, device):
@@ -264,8 +283,11 @@ def phase_k2(B, device):
     print(f"K2: bound {bound_ms:.4f} ms ({bound_by}; mean newton "
           f"{ck.newton_iters.float().mean().item():.2f}, one linesearch "
           f"trial each)")
+    design = design_line("K2", "mpc_solve.cu", "fb_mpc_solve_info",
+                         tuple(HEADLINE.values()))
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                design=design)
 
 
 def k3_compare(B, n, q, nl, device, kernel=None, **kw):
@@ -398,8 +420,8 @@ def phase_main(B, device):
 
 def mpc_breakdown(data, z0, l0, v0, opts):
     """One more one-shot call, timed stage by stage: Ruiz scaling, the
-    scaled solve (K2 with its layout transposes), the refinement loop (K1
-    and the double-float residuals)."""
+    scaled solve (K2), the refinement loop (K1 and the double-float
+    residuals)."""
     from fbstab_tpu_torch.models.mpc_qp import _solve_mpc_qp_batch_raw
     from fbstab_tpu_torch.models.refine import refine_solution_mpc
     from fbstab_tpu_torch.models.scaling import (
@@ -541,8 +563,11 @@ def phase_k4(B, device):
     print(f"K4: bound {bound_ms:.4f} ms ({bound_by}; {launches} launches "
           f"per solve, mean newton {ck.newton_iters.float().mean().item():.2f}"
           f", one linesearch trial each)")
+    design = design_line("K4", "mpc_subproblem.cu", "fb_mpc_subproblem_info",
+                         tuple(COPOLY.values()))
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                design=design)
 
 
 def phase_k5(B, device):
@@ -857,13 +882,12 @@ def phase_warmstart(B, device, steps=8):
     shifted warmstarts, through the one-shot dispatch (K2, then K1 in the
     refinement). Every step needs success >= 0.99 and the refined residual
     <= 1e-6 on its SUCCESS lanes. Also times the part of a step that
-    relays the shared data (the Ruiz diagonals applied, then the batch-last
-    copy K2 reads), which every step repeats."""
+    relays the shared data (the Ruiz diagonals applied to the expanded
+    plant, which K2 then reads as it is), which every step repeats."""
     from fbstab_tpu_torch.models.mpc_qp import MpcQPData
     from fbstab_tpu_torch.models.receding_horizon import simulate_batch
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
-    from fbstab_tpu_torch.ops.riccati_cuda import to_batch_last
     from fbstab_tpu_torch.options import Options
 
     opts = Options.single_precision()
@@ -880,8 +904,7 @@ def phase_warmstart(B, device, steps=8):
     batch = MpcQPData(*(a.expand((B,) + a.shape[1:]) for a in shared))
     one = ruiz_mpc_scaling(shared)
     scal = type(one)(*(a.expand((B,) + a.shape[1:]) for a in one))
-    relay = lambda: [to_batch_last(a)
-                     for a in apply_mpc_scaling(batch, scal)]
+    relay = lambda: [a.contiguous() for a in apply_mpc_scaling(batch, scal)]
     relay()
     _, t_relay = timed(relay)
     print(f"warmstart: B={B} steps={steps} QPs/s {B * steps / (t / 1e3):.1f}"
@@ -932,11 +955,13 @@ def main():
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
                  mpc_warmstart=n_warm)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
+    ONE = "one thread per instance"
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
              source="fbstab_tpu_torch/csrc/riccati.cu",
              replaces="fbstab_tpu/ops/riccati_pallas.py:418",
-             launches=n_adapt["K1"], launches_by_path=by_path("K1"), **k1),
+             launches=n_adapt["K1"], launches_by_path=by_path("K1"),
+             design=ONE, **k1),
         dict(name="fbstab_mpc_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_solve.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1109",
@@ -944,7 +969,8 @@ def main():
         dict(name="fbstab_dense_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/dense_solve.cu",
              replaces="fbstab_tpu/ops/dense_solve_pallas.py:421",
-             launches=n_dense["K3"], launches_by_path=by_path("K3"), **k3),
+             launches=n_dense["K3"], launches_by_path=by_path("K3"),
+             design=ONE, **k3),
         dict(name="mpc_subproblem_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_subproblem.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1347",
@@ -952,19 +978,24 @@ def main():
         dict(name="combine_bl", route="cuda",
              source="fbstab_tpu_torch/csrc/assoc_combine.cu",
              replaces="fbstab_tpu/ops/assoc_riccati.py:388",
-             launches=n_assoc["K5"], launches_by_path=by_path("K5"), **k5),
+             launches=n_assoc["K5"], launches_by_path=by_path("K5"),
+             design=ONE, **k5),
     ] + [
         dict(name=f"mxu_probe_{form}", route="cuda",
              source="fbstab_tpu_torch/csrc/mxu_probe.cu",
              replaces="bench.py:998, scratch/tpu_mxu.py:104",
-             launches=n_mxu[key], launches_by_path=by_path(key), **p1[form])
-        for form, key in (("cuda_perlane", "P1_perlane"),
-                          ("cuda_shared", "P1_shared"), ("tc_shared", "P1_tc"))
+             launches=n_mxu[key], launches_by_path=by_path(key),
+             design=design, **p1[form])
+        for form, key, design in (
+            ("cuda_perlane", "P1_perlane", "one thread per row and lane"),
+            ("cuda_shared", "P1_shared", "one thread per row and lane"),
+            ("tc_shared", "P1_tc", "one warp per 8 lanes, TF32 mma.sync"))
     ] + [
         dict(name="df_probe", route="cuda",
              source="fbstab_tpu_torch/csrc/df_probe.cu",
              replaces="scratch/tpu_df_kernel.py:77", launches=n_df["P3"],
-             launches_by_path=by_path("P3"), **p3),
+             launches_by_path=by_path("P3"), design="one thread per column",
+             **p3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

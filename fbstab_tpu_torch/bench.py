@@ -252,7 +252,7 @@ def run_main(B=None, device=None):
     from fbstab_tpu_torch.parallel.adaptive import (
         solve_mpc_qp_batch_adaptive_device)
     from fbstab_tpu_torch.perf_model import (
-        executed_refine_steps, mean_refine_steps, mpc_perf_model)
+        WARP, executed_refine_steps, mean_refine_steps, mpc_perf_model)
 
     dev = resolve_device(device)
     if B is None:
@@ -267,13 +267,20 @@ def run_main(B=None, device=None):
             phase1_newton_iters=phase1, phase2_size=P2)
 
     t, (x, core), times = _best(solve, reps=3)
+    # Instances that run in lockstep: a warp of K2's teams on the card.
+    width = WARP
+    if dev.type == "cuda":
+        from fbstab_tpu_torch.ops._build import kernel_info, load_library
+        width = kernel_info(load_library().fb_mpc_solve_info,
+                            *HEADLINE.values())["teams_per_block"]
     success = _success(core)
     # x solves the last timed call's problem, x0 scaled by 1 + 3e-6.
     res64 = mpc_f64_residual(_fresh_x0(data, 3), x, opts.alpha)
     frac = float(np.mean(res64 <= CONTRACT))
     pm = mpc_perf_model(B, *HEADLINE.values(),
                         core.newton_iters.cpu().numpy(), t,
-                        mean_refine_steps(core), two_phase=(phase1, P2))
+                        mean_refine_steps(core), two_phase=(phase1, P2),
+                        width=width)
     pm["max_refine_steps"] = executed_refine_steps(core)
     pm["two_phase"] = {"phase1_newton_iters": phase1, "phase2_size": P2}
     pm["segments"] = measure_segments(data, z0, l0, v0, opts, phase1, P2,

@@ -37,15 +37,10 @@ FB_HD long long assoc_combine_ws_floats(int n) {
   return 3LL * n * n + 2LL * n;
 }
 
-// Column j of the n x n row-major block X, as a vector.
-FB_DEV Lane fb_col(Lane X, int n, int j) {
-  return Lane{X.p + j * X.s, X.s * n};
-}
-
 // x <- s .* K^-1 (s .* x) on the factor L of s K s, in place.
 FB_DEV void fb_eq_solve(Lane L, Lane s, int n, Lane x) {
   for (int i = 0; i < n; ++i) x[i] = x[i] * s[i];
-  fb_cho_solve(L, n, x);
+  fb_cho_solve(Solo{}, L, n, x);
   for (int i = 0; i < n; ++i) x[i] = x[i] * s[i];
 }
 
@@ -60,7 +55,7 @@ FB_DEV void assoc_combine_lane(int n, const Span& l, const Span& r,
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < n; ++j)
       L[i * n + j] = ((l.P22[i * n + j] + r.P11[i * n + j]) * s[i]) * s[j];
-  fb_chol(L, n);
+  fb_chol(Solo{}, L, n);
   // X1 = K^-1 P12_l', X2 = K^-1 P12_r, w <- K^-1 (p2_l + p1_r).
   for (int i = 0; i < n; ++i)
     for (int j = 0; j < n; ++j) {

@@ -61,6 +61,7 @@ struct DenseSolveProb {
   DenseProb P;
   Lane ws;
 
+  FB_DEV Solo team() const { return Solo{}; }
   FB_DEV long long nz() const { return D.n; }
   FB_DEV long long nl() const { return D.nl; }
   FB_DEV long long nv() const { return D.q; }
@@ -148,7 +149,7 @@ struct DenseSolveProb {
         if (i == j) hij = hij + sg;
         Le[(long long)i * n + j] = hij + e;
       }
-    fb_chol(Le, n);
+    fb_chol(Solo{}, Le, n);
     // r1 = rz - A'(rv ./ mus) into d.z (rv ./ mus in d.v for now).
     for (int c = 0; c < q; ++c) d.v[c] = r.v[c] / mus[c];
     for (int i = 0; i < n; ++i)
@@ -158,7 +159,7 @@ struct DenseSolveProb {
       for (int k = 0; k < nlc; ++k) {
         Lane wk = Wt.at((long long)k * n);
         for (int i = 0; i < n; ++i) wk[i] = P.G[(long long)k * n + i];
-        fb_trsv_lower(Le, n, wk);
+        fb_trsv_lower(Solo{}, Le, n, wk);
       }
       for (int k = 0; k < nlc; ++k)
         for (int m = 0; m <= k; ++m) {
@@ -167,17 +168,17 @@ struct DenseSolveProb {
             s += Wt[(long long)k * n + i] * Wt[(long long)m * n + i];
           Ls[(long long)k * nlc + m] = (k == m) ? sg + s : s;
         }
-      fb_chol(Ls, nlc);
+      fb_chol(Solo{}, Ls, nlc);
       // dl = S^{-1}(W'u + rl) with u = Le^{-1} r1.
       for (int i = 0; i < n; ++i) u[i] = d.z[i];
-      fb_trsv_lower(Le, n, u);
+      fb_trsv_lower(Solo{}, Le, n, u);
       for (int k = 0; k < nlc; ++k) d.l[k] = dn_row(Wt, n, u, k) + r.l[k];
-      fb_cho_solve(Ls, nlc, d.l);
+      fb_cho_solve(Solo{}, Ls, nlc, d.l);
       // r1 - G' dl.
       for (int i = 0; i < n; ++i)
         d.z[i] = d.z[i] - dn_row_T(P.G, nlc, n, d.l, i);
     }
-    fb_cho_solve(Le, n, d.z);
+    fb_cho_solve(Solo{}, Le, n, d.z);
     // Dual recovery (dense_cholesky_solver.cc:118-124).
     for (int c = 0; c < q; ++c) {
       float adz = dn_row(P.A, n, d.z, c);

@@ -1,9 +1,19 @@
 // Shared definitions of the FBstab CUDA kernels.
 //
-// Every per-instance array lives in device memory in batch-last layout:
-// element k of instance b is at k * B + b, so the 32 threads of a warp
-// (32 consecutive instances) touch 32 consecutive floats on every access.
-// A `Lane` is the view of one instance's array.
+// A `Lane` is the view of one instance's array: element k at p[k * s].
+// K1, K3 and K5 keep every per-instance array batch-last (s = B: element k
+// of instance b at k * B + b, so the 32 threads of a warp, 32 consecutive
+// instances, touch 32 consecutive floats). K2 and K4 keep them
+// instance-major (s = 1: element k of instance b at b * n + k, the
+// batch-first layout torch holds, so the threads of one instance's team
+// touch consecutive floats).
+//
+// A team is the group of threads that runs one instance: `Solo`, one
+// thread (K1, K3, and every kernel in the host replay), or `Team<T>`, a
+// thread_block_tile of T threads (K2, K4). Work split over a team goes
+// round-robin: thread `rank` takes items rank, rank + size, ... Every
+// reduction is an xor butterfly, which leaves the same bits on every
+// thread, so a team's control flow never diverges.
 //
 // The device code is plain C++ behind FB_DEV, so the same headers also
 // compile as host code for a CPU rehearsal of the arithmetic.
@@ -12,29 +22,83 @@
 #include <math.h>
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #define FB_DEV __device__ __forceinline__
 #define FB_HD __host__ __device__ __forceinline__
+// Unrolls a dot product over device memory, so that several of its loads
+// are in flight at once.
+#define FB_UNROLL _Pragma("unroll 4")
 #else
 #define FB_DEV inline
 #define FB_HD inline
+#define FB_UNROLL
 #endif
 
 struct Lane {
-  float* p;       // &array[0 * B + b]
-  long long s;    // stride between consecutive elements: B
+  float* p;       // &array[0] of this instance
+  int s;          // stride between consecutive elements: B or 1
   FB_DEV float& operator[](long long i) const { return p[i * s]; }
   FB_DEV Lane at(long long off) const { return Lane{p + off * s, s}; }
 };
 
-FB_DEV Lane lane_of(const float* base, long long B, long long b) {
-  return Lane{const_cast<float*>(base) + b, B};
+// Column j of the n x n row-major block X, as a vector.
+FB_DEV Lane fb_col(Lane X, int n, int j) {
+  return Lane{X.p + (long long)j * X.s, X.s * n};
 }
+
+// Batch-last: element k of instance b at k * B + b.
+FB_DEV Lane lane_of(const float* base, long long B, long long b) {
+  return Lane{const_cast<float*>(base) + b, (int)B};
+}
+
+// Instance-major: element k of instance b at b * n + k.
+FB_DEV Lane lane_im(const float* base, long long n, long long b) {
+  return Lane{const_cast<float*>(base) + b * n, 1};
+}
+
+// The team of one thread. It reads every operand where it lies.
+struct Solo {
+  static constexpr bool kStages = false;
+  static FB_HD int size() { return 1; }
+  FB_DEV int rank() const { return 0; }
+  FB_DEV void sync() const {}
+  FB_DEV float sum(float x) const { return x; }
+  FB_DEV float max(float x) const { return x; }
+  FB_DEV bool any(bool x) const { return x; }
+  FB_DEV float bcast(float x, int) const { return x; }
+};
+
+#ifdef __CUDACC__
+// A team of T threads (T a power of two, at most 32): a tile of a warp.
+// Several teams may share a warp and run apart; a tile's shuffles and
+// syncs use only its own lanes' mask.
+template <int T>
+struct Team {
+  // Copies each stage's operands into shared memory before working on them
+  // (riccati.cuh).
+  static constexpr bool kStages = true;
+  cooperative_groups::thread_block_tile<T> g;
+  static FB_HD int size() { return T; }
+  FB_DEV int rank() const { return (int)g.thread_rank(); }
+  FB_DEV void sync() const { g.sync(); }
+  FB_DEV float sum(float x) const {
+    for (int o = T / 2; o > 0; o >>= 1) x += g.shfl_xor(x, o);
+    return x;
+  }
+  FB_DEV float max(float x) const {
+    for (int o = T / 2; o > 0; o >>= 1) x = fmaxf(x, g.shfl_xor(x, o));
+    return x;
+  }
+  FB_DEV bool any(bool x) const { return g.any(x ? 1 : 0) != 0; }
+  FB_DEV float bcast(float x, int src) const { return g.shfl(x, src); }
+};
+#endif
 
 struct MpcDims {
   int N, nx, nu, nc;
 };
 
-// Batch-last MPC data at one instance (stage blocks row-major):
+// MPC data of one instance (stage blocks row-major):
 // Q (N+1,nx,nx), R (N+1,nu,nu), S (N+1,nu,nx), q (N+1,nx), r (N+1,nu),
 // A (N,nx,nx), B (N,nx,nu), c (N,nx), E (N+1,nc,nx), L (N+1,nc,nu),
 // d (N+1,nc), x0 (nx).
@@ -80,43 +144,99 @@ FB_DEV float fb_pfb(float a, float b, float alpha, float om_alpha) {
 }
 
 // Small dense linear algebra on row-major blocks of one instance, shared
-// by the kernels.
+// by the kernels, split over a team. Each element goes through the same
+// operations in the same order whatever the team's size, so a team's
+// factors and solves are bit for bit the team of one's. On entry every
+// operand is visible to the whole team; on return so is every result.
 
 // In place lower Cholesky of the n x n row-major block A (lower triangle
-// read; the strict upper triangle is zeroed).
-FB_DEV void fb_chol(Lane A, int n) {
+// read; the strict upper triangle is zeroed), one column at a time: the
+// team scales the column below the pivot, then updates the trailing rows,
+// one row per thread.
+template <class Tm>
+FB_DEV void fb_chol(const Tm& tm, Lane A, int n) {
+  const int T = tm.size();
   for (int k = 0; k < n; ++k) {
     float d = sqrtf(A[k * n + k]);
-    for (int r = k; r < n; ++r) A[r * n + k] = A[r * n + k] / d;
-    for (int r = k + 1; r < n; ++r) {
+    for (int r = k + 1 + tm.rank(); r < n; r += T)
+      A[r * n + k] = A[r * n + k] / d;
+    tm.sync();
+    // The pivot is read by no one in this pass.
+    if (tm.rank() == k % T) A[k * n + k] = A[k * n + k] / d;
+    for (int r = k + 1 + tm.rank(); r < n; r += T) {
       float lrk = A[r * n + k];
       for (int c = k + 1; c <= r; ++c) A[r * n + c] -= lrk * A[c * n + k];
     }
+    tm.sync();
   }
-  for (int r = 0; r < n; ++r)
+  for (int r = tm.rank(); r < n; r += T)
     for (int c = r + 1; c < n; ++c) A[r * n + c] = 0.0f;
+  tm.sync();
 }
 
-// x <- inv(L) x for lower L (n x n).
-FB_DEV void fb_trsv_lower(Lane L, int n, Lane x) {
+// x <- inv(L) x for lower L (n x n). Element r of x belongs to thread
+// r % size: the owner of k forms x[k], a shuffle hands it to the team,
+// and each thread updates its own rows below k.
+template <class Tm>
+FB_DEV void fb_trsv_lower(const Tm& tm, Lane L, int n, Lane x) {
+  const int T = tm.size();
   for (int k = 0; k < n; ++k) {
-    float xk = x[k] / L[k * n + k];
-    x[k] = xk;
-    for (int r = k + 1; r < n; ++r) x[r] -= L[r * n + k] * xk;
+    const int own = k % T;
+    float xk = 0.0f;
+    if (tm.rank() == own) {
+      xk = x[k] / L[k * n + k];
+      x[k] = xk;
+    }
+    xk = tm.bcast(xk, own);
+    for (int r = tm.rank(); r < n; r += T)
+      if (r > k) x[r] -= L[r * n + k] * xk;
   }
+  tm.sync();
 }
 
-// x <- inv(L') x for lower L (n x n).
-FB_DEV void fb_trsv_upperT(Lane L, int n, Lane x) {
+// x <- inv(L') x for lower L (n x n), with the ownership of fb_trsv_lower.
+template <class Tm>
+FB_DEV void fb_trsv_upperT(const Tm& tm, Lane L, int n, Lane x) {
+  const int T = tm.size();
   for (int k = n - 1; k >= 0; --k) {
-    float xk = x[k] / L[k * n + k];
-    x[k] = xk;
-    for (int r = 0; r < k; ++r) x[r] -= L[k * n + r] * xk;
+    const int own = k % T;
+    float xk = 0.0f;
+    if (tm.rank() == own) {
+      xk = x[k] / L[k * n + k];
+      x[k] = xk;
+    }
+    xk = tm.bcast(xk, own);
+    for (int r = tm.rank(); r < k; r += T) x[r] -= L[k * n + r] * xk;
   }
+  tm.sync();
 }
 
 // x <- inv(L L') x.
-FB_DEV void fb_cho_solve(Lane L, int n, Lane x) {
-  fb_trsv_lower(L, n, x);
-  fb_trsv_upperT(L, n, x);
+template <class Tm>
+FB_DEV void fb_cho_solve(const Tm& tm, Lane L, int n, Lane x) {
+  fb_trsv_lower(tm, L, n, x);
+  fb_trsv_upperT(tm, L, n, x);
+}
+
+// The team's working view of the n floats at src: for a team that stages
+// its operands, a copy at dst (its stage block in shared memory), visible
+// after the caller's next sync; for the team of one, src itself.
+template <class Tm>
+FB_DEV Lane fb_stage_in(const Tm& tm, Lane dst, Lane src, int n) {
+  if (!Tm::kStages) return src;
+  for (int k = tm.rank(); k < n; k += tm.size()) dst[k] = src[k];
+  return dst;
+}
+
+// Where a team computes a block that ends up at `home`: at `staged` for a
+// team that stages (fb_stage_out then writes it home), at home otherwise.
+template <class Tm>
+FB_DEV Lane fb_work(const Tm&, Lane staged, Lane home) {
+  return Tm::kStages ? staged : home;
+}
+
+template <class Tm>
+FB_DEV void fb_stage_out(const Tm& tm, Lane home, Lane src, int n) {
+  if (!Tm::kStages) return;
+  for (int k = tm.rank(); k < n; k += tm.size()) home[k] = src[k];
 }

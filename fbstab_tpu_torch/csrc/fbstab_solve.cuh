@@ -3,13 +3,15 @@
 // backtracking linesearch with the float32 stall guard, the infeasibility
 // checks and the exit flags, in the order of checks of core/algorithm.py
 // (reference fbstab_algorithm-impl.h:113-304). A transcription of
-// `vmap(fbstab_solve)` for one lane: each instance runs its own loops, so
-// nothing is masked. K2 (mpc_solve.cuh) and K3 (dense_solve.cuh) each
-// instantiate it with their problem class; K4 (mpc_subproblem.cu) runs one
-// outer iteration of it per launch (fb_outer_step).
+// `vmap(fbstab_solve)` for one lane: each instance runs its own loops on
+// its own team, so nothing is masked. K2 (mpc_solve.cuh) and K3
+// (dense_solve.cuh) each instantiate it with their problem class; K4
+// (mpc_subproblem.cu) runs one outer iteration of it per launch
+// (fb_outer_step).
 //
 // A problem class `Prob` holds one instance's data and Newton-step
 // scratch and provides:
+//   team() const;                               the instance's team
 //   long long nz(), nl(), nv() const;          sizes of z, l and v (= y)
 //   float b(long long k) const;                 inequality rhs b
 //   float Az(Lane z, long long k) const;        row k of A z
@@ -23,6 +25,11 @@
 //       d (dz, dl, dv, dy = b - A dz); false when dz or dl holds a NaN;
 //   void feasibility(dx, tol, p_inf, d_inf) const;
 //       the infeasibility certificates at dx (full_feasibility.cc:29-77).
+// Each method is called by the whole team, returns the same value on
+// every thread of it, and leaves what it wrote visible to the team.
+// Here the team splits the vector passes elementwise, thread `rank`
+// taking elements rank, rank + size, ...; every decision is taken on
+// values the team's reductions made equal on all its threads.
 #pragma once
 
 #include "fbstab_common.cuh"
@@ -79,12 +86,15 @@ FB_DEV Vars fb_vars_at(Lane base, long long nz, long long nl, long long nv) {
 
 template <class Prob>
 FB_DEV void fb_vars_copy(const Prob& P, const Vars& dst, const Vars& src) {
-  for (long long k = 0; k < P.nz(); ++k) dst.z[k] = src.z[k];
-  for (long long k = 0; k < P.nl(); ++k) dst.l[k] = src.l[k];
-  for (long long k = 0; k < P.nv(); ++k) {
+  const auto tm = P.team();
+  const int T = tm.size(), me = tm.rank();
+  for (long long k = me; k < P.nz(); k += T) dst.z[k] = src.z[k];
+  for (long long k = me; k < P.nl(); k += T) dst.l[k] = src.l[k];
+  for (long long k = me; k < P.nv(); k += T) {
     dst.v[k] = src.v[k];
     dst.y[k] = src.y[k];
   }
+  tm.sync();
 }
 
 // xt = x + t d with the margin rule y <- y + t (dy - b)
@@ -92,12 +102,46 @@ FB_DEV void fb_vars_copy(const Prob& P, const Vars& dst, const Vars& src) {
 template <class Prob>
 FB_DEV void fb_axpy(const Prob& P, const Vars& xt, float t, const Vars& dx,
                     const Vars& x) {
-  for (long long k = 0; k < P.nz(); ++k) xt.z[k] = x.z[k] + t * dx.z[k];
-  for (long long k = 0; k < P.nl(); ++k) xt.l[k] = x.l[k] + t * dx.l[k];
-  for (long long k = 0; k < P.nv(); ++k) {
+  const auto tm = P.team();
+  const int T = tm.size(), me = tm.rank();
+  for (long long k = me; k < P.nz(); k += T) xt.z[k] = x.z[k] + t * dx.z[k];
+  for (long long k = me; k < P.nl(); k += T) xt.l[k] = x.l[k] + t * dx.l[k];
+  for (long long k = me; k < P.nv(); k += T) {
     xt.v[k] = x.v[k] + t * dx.v[k];
     xt.y[k] = x.y[k] + t * (dx.y[k] - P.b(k));
   }
+  tm.sync();
+}
+
+// |xi - xk| over (z, l, v), the dx norm of the stall test; with `keep`,
+// dx = xi - xk with the margin identity (impl.h:201-203) goes to d.
+template <class Prob>
+FB_DEV float fb_step_norm(const Prob& P, const Vars& xi, const Vars& xk,
+                          bool keep, const Vars& d) {
+  const auto tm = P.team();
+  const int T = tm.size(), me = tm.rank();
+  float s2 = 0.0f;
+  for (long long q = me; q < P.nz(); q += T) {
+    float e = xi.z[q] - xk.z[q];
+    if (keep) d.z[q] = e;
+    s2 += e * e;
+  }
+  for (long long q = me; q < P.nl(); q += T) {
+    float e = xi.l[q] - xk.l[q];
+    if (keep) d.l[q] = e;
+    s2 += e * e;
+  }
+  for (long long q = me; q < P.nv(); q += T) {
+    float e = xi.v[q] - xk.v[q];
+    if (keep) {
+      d.v[q] = e;
+      d.y[q] = xi.y[q] - xk.y[q] + P.b(q);
+    }
+    s2 += e * e;
+  }
+  s2 = tm.sum(s2);
+  tm.sync();
+  return sqrtf(s2);
 }
 
 template <class Prob>
@@ -156,7 +200,10 @@ FB_DEV float fb_subproblem(const Prob& P, const SolveOpts& o, const Vars& xk,
     newton += 1;
   }
   // Project duals (impl.h:301).
-  for (long long k = 0; k < P.nv(); ++k) xi.v[k] = fmaxf(xi.v[k], 0.0f);
+  const auto tm = P.team();
+  for (long long k = tm.rank(); k < P.nv(); k += tm.size())
+    xi.v[k] = fmaxf(xi.v[k], 0.0f);
+  tm.sync();
   return Eo;
 }
 
@@ -170,8 +217,8 @@ FB_DEV float fb_subproblem(const Prob& P, const SolveOpts& o, const Vars& xk,
 // loop's per-lane select (mpc_solve_pallas.py:1296-1314). Ek, success and
 // itol are returned for every lane, so that the host loop's exits read the
 // arithmetic of this iteration and no other. fbstab_solve_lane keeps its
-// own copy of these steps: calling this function from it cost K2 1.2% in
-// an A/B on an H100 (spills at the register cap).
+// own copy of the head: calling this function from it cost the
+// one-thread K2 1.2% in an A/B on an H100 (spills at the register cap).
 struct OuterStep {
   float Eo, Ek, itol, dxn;
   int newton;
@@ -197,20 +244,7 @@ FB_DEV OuterStep fb_outer_step(const Prob& P, const SolveOpts& o,
   if (done || s.success) return s;
   s.Eo = fb_subproblem(P, o, xk, xi, d, xt, r, s.itol, s.Ek, s.newton,
                        s.lfail);
-  float s2 = 0.0f;
-  for (long long q = 0; q < P.nz(); ++q) {
-    float e = xi.z[q] - xk.z[q];
-    s2 += e * e;
-  }
-  for (long long q = 0; q < P.nl(); ++q) {
-    float e = xi.l[q] - xk.l[q];
-    s2 += e * e;
-  }
-  for (long long q = 0; q < P.nv(); ++q) {
-    float e = xi.v[q] - xk.v[q];
-    s2 += e * e;
-  }
-  s.dxn = sqrtf(s2);
+  s.dxn = fb_step_norm(P, xi, xk, false, d);
   return s;
 }
 
@@ -230,6 +264,8 @@ template <class Prob>
 FB_DEV void fbstab_solve_lane(const Prob& P, const SolveOpts& o, Lane z0,
                               Lane l0, Lane v0, const SolveOut& out,
                               Lane its) {
+  const auto tm = P.team();
+  const int T = tm.size(), me = tm.rank();
   const long long nz = P.nz(), nl = P.nl(), nv = P.nv();
   const long long nvar = fb_vars_floats(nz, nl, nv);
   const Vars xk = fb_vars_at(its, nz, nl, nv);
@@ -243,22 +279,26 @@ FB_DEV void fbstab_solve_lane(const Prob& P, const SolveOpts& o, Lane z0,
       o.abs_tol + o.rel_tol * (1.0f + sqrtf(P.forcing_sq()));
 
   // Initialization (impl.h:139-149): y = b - A z0.
-  for (long long k = 0; k < nz; ++k) xk.z[k] = z0[k];
-  for (long long k = 0; k < nl; ++k) xk.l[k] = l0[k];
-  for (long long k = 0; k < nv; ++k) {
+  for (long long k = me; k < nz; k += T) xk.z[k] = z0[k];
+  for (long long k = me; k < nl; k += T) xk.l[k] = l0[k];
+  tm.sync();
+  for (long long k = me; k < nv; k += T) {
     xk.v[k] = v0[k];
     xk.y[k] = P.b(k) - P.Az(xk.z, k);
   }
+  tm.sync();
   float dxn = sqrtf((float)nz + (float)nl + (float)nv);
   const float E0 = fb_pnr(P, o, xk);
-  *out.res0 = E0;
+  if (me == 0) *out.res0 = E0;
   float itol = fminf(fmaxf(E0, o.inner_tol_min), o.inner_tol_max);
 
   int newton = 0, prox = 0, eflag = FB_MAXITERATIONS;
   float Ek = E0, out_res = E0;
   bool done = false;
-  // out_x is written into the output arrays on exit; `src` picks it.
-  const Vars* src = &xk;
+  // out_x is written into the output arrays on exit; `src` picks it
+  // (0: xk, 1: xi, 2: d; an index, not a pointer, keeps the iterates'
+  // views out of local memory).
+  int src = 0;
   for (int k = 0; k < o.max_prox && !done; ++k) {
     Ek = fb_pnr(P, o, xk);
     bool success = (Ek <= combo_tol) || (dxn <= o.stall_tol);
@@ -271,30 +311,16 @@ FB_DEV void fbstab_solve_lane(const Prob& P, const SolveOpts& o, Lane z0,
       Eo = fb_subproblem(P, o, xk, xi, d, xt, r, itol, Ek, newton, lfail);
 
     // dx = xi - xk with the margin identity (impl.h:201-203), into d.
-    float s2 = 0.0f;
-    for (long long q = 0; q < nz; ++q) {
-      d.z[q] = xi.z[q] - xk.z[q];
-      s2 += d.z[q] * d.z[q];
-    }
-    for (long long q = 0; q < nl; ++q) {
-      d.l[q] = xi.l[q] - xk.l[q];
-      s2 += d.l[q] * d.l[q];
-    }
-    for (long long q = 0; q < nv; ++q) {
-      d.v[q] = xi.v[q] - xk.v[q];
-      d.y[q] = xi.y[q] - xk.y[q] + P.b(q);
-      s2 += d.v[q] * d.v[q];
-    }
-    dxn = sqrtf(s2);
+    dxn = fb_step_norm(P, xi, xk, true, d);
 
     if (success) {
-      eflag = FB_SUCCESS; src = &xk; out_res = Ek; done = true;
+      eflag = FB_SUCCESS; src = 0; out_res = Ek; done = true;
     } else if (lfail) {
-      eflag = FB_LINEAR_SOLVER_FAILED; src = &xk; out_res = Ek; done = true;
+      eflag = FB_LINEAR_SOLVER_FAILED; src = 0; out_res = Ek; done = true;
     } else if (newton >= o.max_newton) {
       // Newton budget (impl.h:188-199): the better of xi / xk.
-      src = (Eo < Ek) ? &xi : &xk;
-      out_res = fb_pnr(P, o, *src);
+      src = (Eo < Ek) ? 1 : 0;
+      out_res = fb_pnr(P, o, src ? xi : xk);
       eflag = FB_MAXITERATIONS; done = true;
     } else {
       bool p_inf = false, d_inf = false;
@@ -302,7 +328,7 @@ FB_DEV void fbstab_solve_lane(const Prob& P, const SolveOpts& o, Lane z0,
       if (p_inf || d_inf) {
         eflag = (p_inf && d_inf) ? FB_PRIMAL_DUAL_INFEASIBLE
                 : (p_inf ? FB_PRIMAL_INFEASIBLE : FB_DUAL_INFEASIBLE);
-        src = &d; out_res = Ek; done = true;
+        src = 2; out_res = Ek; done = true;
       }
     }
     if (!done) {
@@ -312,11 +338,13 @@ FB_DEV void fbstab_solve_lane(const Prob& P, const SolveOpts& o, Lane z0,
   }
   if (!done) {
     // Proximal budget exhausted (impl.h:219-223).
-    src = &xk; out_res = Ek; eflag = FB_MAXITERATIONS;
+    src = 0; out_res = Ek; eflag = FB_MAXITERATIONS;
   }
-  fb_vars_copy(P, out.x, *src);
-  *out.eflag = eflag;
-  *out.res = out_res;
-  *out.newton = newton;
-  *out.prox = prox;
+  fb_vars_copy(P, out.x, src == 0 ? xk : (src == 1 ? xi : d));
+  if (me == 0) {
+    *out.eflag = eflag;
+    *out.res = out_res;
+    *out.newton = newton;
+    *out.prox = prox;
+  }
 }

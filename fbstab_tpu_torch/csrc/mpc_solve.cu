@@ -7,29 +7,46 @@
 // loop on the shared riccati_factor_solve (riccati.cuh), nonmonotone
 // linesearch, infeasibility checks and exit flags (mpc_solve.cuh).
 //
-// Design: one thread per instance, each running its own data-dependent
-// loops to its own exit, so the lockstep masks, selects and int32 mask
-// carries of the Pallas kernel (Mosaic workarounds) have no counterpart.
-// Iterates (xk, xi, the step, the trial point, the residual) and the
-// Newton-step scratch are batch-last in device memory; the wrapper
-// allocates them, the kernel allocates nothing.
+// Design: a team of 8 threads per instance (a thread_block_tile,
+// fbstab_common.cuh; nx = 8 rows of a stage at the headline), four teams
+// to a one-warp block, no block-wide barrier. Each team runs its
+// instance's data-dependent loops to its own exit, so the lockstep masks,
+// selects and int32 mask carries of the Pallas kernel (Mosaic
+// workarounds) have no counterpart; inside a stage the team shares
+// the small products, factorizations and solves (the split is set out in
+// riccati.cuh and mpc_solve.cuh). Data, iterates and the Riccati factors
+// are instance-major in device memory, so a team's accesses are
+// contiguous; each team works on the current stage in a stage block of
+// shared memory (the Hessians, T = inv(L L'), the vector temporaries and
+// the staged E, L and factors; 2.3 KB at the headline). The wrapper
+// allocates the device-memory scratch; the kernel allocates nothing.
 //
-// What bounds it: per instance, a Newton iteration is ~1e5 dependent
-// scalar FLOPs (the Riccati factorization, ~90% of them) plus a few
-// residual passes of ~1e4, and a solve takes some tens of iterations, all
-// on one thread; every operand is a load from the instance's working set
-// (55 KB of scratch and 34 KB of data at the headline dims) in L2/HBM.
-// With B = 8192 instances at 32 threads per block the card holds about
-// two warps per SM, so load latency, not arithmetic or bandwidth, sets
-// the time, and the slowest instance of each warp sets its warp's time. A first, exact kernel accepts that; register-resident
-// stage blocks and several threads per instance are later work.
+// What bounds it: the chain of dependent steps per instance, ~11 Newton
+// iterations of one Riccati factor-and-solve (per stage a few dozen team
+// phases, each a handful of dependent shared-memory round trips, shuffles
+// and FMAs) and ~3 residual passes; the card's rates are far from the
+// limit. On an H100 80GB HBM3 at 700 W (PERF.md) it took 114 ms at
+// B = 1024 on the equilibrated headline, where one thread per instance
+// took 920 ms, and 406 ms at B = 8192. There each thread holds 255
+// registers (and spills ~0.5 KB to L1), so an SM holds 8 blocks and the
+// batch runs in two waves; capping the registers at 128 for 16 blocks an
+// SM spilled more and lost 7-14% at B = 1024, at 8192 and on the adaptive
+// headline. Teams of 16 and 32 were faster at
+// B = 1024 and slower at 8192 and on the adaptive headline; keeping the
+// whole Riccati scratch in shared memory (36 KB a team, six teams an SM)
+// lost at every team size but 32.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "mpc_solve.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
+namespace cg = cooperative_groups;
+
+constexpr int kTeam = kK2Team;
+constexpr int kTeams = kK2TeamsPerBlock;
+constexpr int kThreads = kTeam * kTeams;
 
 struct SolveArgs {
   const float *q, *r, *c, *x0, *d, *Q, *R, *S, *A, *B, *E, *L;
@@ -42,46 +59,68 @@ struct SolveArgs {
   float *ws;
 };
 
-__global__ void mpc_solve_kernel(MpcDims D, int B, SolveOpts o,
-                                 SolveArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+    mpc_solve_kernel(MpcDims D, int B, SolveOpts o, SolveArgs a) {
+  extern __shared__ float smem[];
+  const Team<kTeam> tm{cg::tiled_partition<kTeam>(cg::this_thread_block())};
+  const int t = threadIdx.x / kTeam;
+  const long long b = (long long)blockIdx.x * kTeams + t;
   if (b >= B) return;
-  MpcProb P;
-  P.Q = lane_of(a.Q, B, b);
-  P.R = lane_of(a.R, B, b);
-  P.S = lane_of(a.S, B, b);
-  P.q = lane_of(a.q, B, b);
-  P.r = lane_of(a.r, B, b);
-  P.A = lane_of(a.A, B, b);
-  P.B = lane_of(a.B, B, b);
-  P.c = lane_of(a.c, B, b);
-  P.E = lane_of(a.E, B, b);
-  P.L = lane_of(a.L, B, b);
-  P.d = lane_of(a.d, B, b);
-  P.x0 = lane_of(a.x0, B, b);
+  const MpcProb P = mpc_prob_im(D, a.q, a.r, a.c, a.x0, a.d, a.Q, a.R, a.S,
+                                a.A, a.B, a.E, a.L, b);
   SolveOut out;
-  out.x = Vars{lane_of(a.z, B, b), lane_of(a.l, B, b), lane_of(a.v, B, b),
-               lane_of(a.y, B, b)};
+  out.x = mpc_vars_im(D, a.z, a.l, a.v, a.y, b);
   out.eflag = a.eflag + b;
   out.res = a.res + b;
   out.newton = a.newton + b;
   out.prox = a.prox + b;
   out.res0 = a.res0 + b;
-  fbstab_mpc_solve_lane(D, o, P, lane_of(a.z0, B, b), lane_of(a.l0, B, b),
-                        lane_of(a.v0, B, b), out, lane_of(a.ws, B, b));
+  const long long N1 = D.N + 1;
+  const SolveLayout L = solve_layout(D);
+  const RicLayout rl = ric_layout(D);
+  const Lane ws = lane_im(a.ws, L.total, b);
+  fbstab_mpc_solve_lane(tm, D, o, P, lane_im(a.z0, N1 * (D.nx + D.nu), b),
+                        lane_im(a.l0, N1 * D.nx, b),
+                        lane_im(a.v0, N1 * D.nc, b), out, ws.at(L.step),
+                        Lane{smem + t * rl.stage_floats, 1}, ws.at(L.xk));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of solver scratch per instance.
+// Floats of device-memory scratch per instance.
 long long fb_solve_ws_floats(int N, int nx, int nu, int nc) {
   return solve_layout(MpcDims{N, nx, nu, nc}).total;
 }
 
-// Launches K2 on `stream`. Arrays are batch-last (rows, B); eflag, res,
-// newton, prox, res0 are (B,). Returns cudaGetLastError().
+// Bytes of shared memory per block.
+long long fb_solve_smem_bytes(int N, int nx, int nu, int nc) {
+  return solve_smem_bytes(MpcDims{N, nx, nu, nc});
+}
+
+// K2's launch shape at these dims: info[0..5] = threads per team, teams
+// per block, registers per thread, local (spill) bytes per thread, shared
+// bytes per block, resident blocks per SM. Returns cudaGetLastError().
+int fb_mpc_solve_info(int N, int nx, int nu, int nc, int* info) {
+  cudaFuncAttributes fa;
+  cudaFuncGetAttributes(&fa, mpc_solve_kernel);
+  const long long smem = solve_smem_bytes(MpcDims{N, nx, nu, nc});
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mpc_solve_kernel,
+                                                kThreads, (size_t)smem);
+  info[0] = kTeam;
+  info[1] = kTeams;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = (int)smem;
+  info[5] = blocks;
+  return (int)cudaGetLastError();
+}
+
+// Launches K2 on `stream`. Arrays are instance-major (B, floats per
+// instance); eflag, res, newton, prox, res0 are (B,). Returns
+// cudaGetLastError().
 int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
                  const float* q, const float* r, const float* c,
                  const float* x0, const float* d, const float* Q,
@@ -93,9 +132,10 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
                  void* stream) {
   SolveArgs a{q, r, c, x0, d, Q, R, S, A, Bm, E, L, z0, l0, v0, z, l, v, y,
               eflag, res, newton, prox, res0, ws};
-  const int blocks = (B + kThreads - 1) / kThreads;
-  mpc_solve_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      MpcDims{N, nx, nu, nc}, B, o, a);
+  const MpcDims D{N, nx, nu, nc};
+  const int blocks = (B + kTeams - 1) / kTeams;
+  mpc_solve_kernel<<<blocks, kThreads, (size_t)solve_smem_bytes(D),
+                     (cudaStream_t)stream>>>(D, B, o, a);
   return (int)cudaGetLastError();
 }
 

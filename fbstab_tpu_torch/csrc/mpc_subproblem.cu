@@ -12,26 +12,43 @@
 // that enters done or succeeds returns xi = xk, Eo = 0 and its counters
 // unchanged.
 //
-// Design: one thread per instance, as K2; the lockstep masks of the Pallas
-// kernel have no counterpart, and its lowmem / staged modes (VMEM and
-// Mosaic register-allocator limits of the TPU) are not needed: the stage
-// factors and iterates live batch-last in device memory, 0.47 MB per
-// instance at the copolymerization reactor's dims, sized by the wrapper.
+// Design: a warp per instance (a team of 32 threads, fbstab_common.cuh;
+// nx + nu = 23 rows of a stage), one team per block,
+// sharing each stage's small products, factorizations and solves as K2's
+// teams do; the lockstep masks of the Pallas kernel have no counterpart,
+// and its lowmem / staged modes (VMEM and Mosaic register-allocator limits
+// of the TPU) are not needed. Data, iterates and the stage factors are
+// instance-major in device memory (0.47 MB of factors per instance at the
+// copolymerization reactor's dims, sized by the wrapper); the team works
+// on the current stage in a stage block of shared memory (the Hessians,
+// T = inv(L L'), the vector temporaries and the staged E, L and factors;
+// 10 KB).
 //
-// What bounds it: a Newton iteration at nx = 18, N = 80 is ~4.4 MFLOP of
-// dependent scalar work in the Riccati factorization plus ~0.3 MFLOP per
-// residual pass, all on one thread, against a working set (0.8 MB per
-// instance with the data) that does not stay in L2 across a warp, so load
-// latency sets the time and the slowest instance of a warp sets the warp's.
-// Several threads per instance (a warp sharing each stage's small matrix
-// products) are the lever for later work.
+// What bounds it: the chain of dependent team phases per instance (a
+// Newton iteration at nx = 18, N = 80 is ~4.4 MFLOP of Riccati work split
+// over the warp, with a Cholesky column, a triangular-solve step or a
+// product phase between syncs), each phase a few shared-memory round
+// trips; at B = 256 one warp per instance leaves most of each SM idle. On
+// an H100 80GB HBM3 at 700 W (PERF.md) the subfused copoly solve
+// (4 launches) took 135 ms at B = 256 with 255 registers a thread, where
+// one thread per instance took 2,478 ms. The registers are capped at 128
+// (__launch_bounds__ asks for 16 resident blocks an SM, not 8): the
+// copoly path runs at B = 2048, where the cap took the whole call from
+// 1,521 to 1,551 QPs/s in an A B B A run, for 13% more time at B = 256
+// and 1.5 KB of spill loads; a cap at 168 registers (12 blocks) gained
+// nothing.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "mpc_solve.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
+namespace cg = cooperative_groups;
+
+constexpr int kTeam = kK4Team;
+constexpr int kTeams = kK4TeamsPerBlock;
+constexpr int kThreads = kTeam * kTeams;
 
 struct SubArgs {
   const float *q, *r, *c, *x0, *d, *Q, *R, *S, *A, *B, *E, *L;
@@ -47,37 +64,31 @@ struct SubArgs {
   float *ws;
 };
 
-__global__ void mpc_subproblem_kernel(MpcDims D, int B, SolveOpts o,
-                                      SubArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads, 16)
+    mpc_subproblem_kernel(MpcDims D, int B, SolveOpts o, SubArgs a) {
+  extern __shared__ float smem[];
+  const Team<kTeam> tm{cg::tiled_partition<kTeam>(cg::this_thread_block())};
+  const int t = threadIdx.x / kTeam;
+  const long long b = (long long)blockIdx.x * kTeams + t;
   if (b >= B) return;
-  MpcProb P;
-  P.Q = lane_of(a.Q, B, b);
-  P.R = lane_of(a.R, B, b);
-  P.S = lane_of(a.S, B, b);
-  P.q = lane_of(a.q, B, b);
-  P.r = lane_of(a.r, B, b);
-  P.A = lane_of(a.A, B, b);
-  P.B = lane_of(a.B, B, b);
-  P.c = lane_of(a.c, B, b);
-  P.E = lane_of(a.E, B, b);
-  P.L = lane_of(a.L, B, b);
-  P.d = lane_of(a.d, B, b);
-  P.x0 = lane_of(a.x0, B, b);
-  const Vars xk{lane_of(a.zk, B, b), lane_of(a.lk, B, b), lane_of(a.vk, B, b),
-                lane_of(a.yk, B, b)};
-  const Vars xi{lane_of(a.z, B, b), lane_of(a.l, B, b), lane_of(a.v, B, b),
-                lane_of(a.y, B, b)};
+  const MpcProb P = mpc_prob_im(D, a.q, a.r, a.c, a.x0, a.d, a.Q, a.R, a.S,
+                                a.A, a.B, a.E, a.L, b);
+  const Vars xk = mpc_vars_im(D, a.zk, a.lk, a.vk, a.yk, b);
+  const Vars xi = mpc_vars_im(D, a.z, a.l, a.v, a.y, b);
+  const RicLayout rl = ric_layout(D);
   const OuterStep s = fbstab_mpc_subproblem_lane(
-      D, o, P, xk, xi, a.itol_prev[b], a.dxn_prev[b], a.newton0[b],
-      a.done[b] != 0, lane_of(a.ws, B, b));
-  a.Eo[b] = s.Eo;
-  a.newton[b] = s.newton;
-  a.lfail[b] = s.lfail ? 1 : 0;
-  a.Ek[b] = s.Ek;
-  a.success[b] = s.success ? 1 : 0;
-  a.itol[b] = s.itol;
-  a.dxn[b] = s.dxn;
+      tm, D, o, P, xk, xi, a.itol_prev[b], a.dxn_prev[b], a.newton0[b],
+      a.done[b] != 0, lane_im(a.ws, subproblem_ws_floats(D), b),
+      Lane{smem + t * rl.stage_floats, 1});
+  if (tm.rank() == 0) {
+    a.Eo[b] = s.Eo;
+    a.newton[b] = s.newton;
+    a.lfail[b] = s.lfail ? 1 : 0;
+    a.Ek[b] = s.Ek;
+    a.success[b] = s.success ? 1 : 0;
+    a.itol[b] = s.itol;
+    a.dxn[b] = s.dxn;
+  }
 }
 
 }  // namespace
@@ -89,9 +100,31 @@ long long fb_subproblem_ws_floats(int N, int nx, int nu, int nc) {
   return subproblem_ws_floats(MpcDims{N, nx, nu, nc});
 }
 
-// Launches K4 on `stream`. Arrays are batch-last (rows, B); itol_prev,
-// dxn_prev, newton0, done and the scalar outputs are (B,). Returns
-// cudaGetLastError().
+// Bytes of shared memory per block.
+long long fb_subproblem_smem_bytes(int N, int nx, int nu, int nc) {
+  return subproblem_smem_bytes(MpcDims{N, nx, nu, nc});
+}
+
+// K4's launch shape at these dims, as fb_mpc_solve_info gives K2's.
+int fb_mpc_subproblem_info(int N, int nx, int nu, int nc, int* info) {
+  cudaFuncAttributes fa;
+  cudaFuncGetAttributes(&fa, mpc_subproblem_kernel);
+  const long long smem = subproblem_smem_bytes(MpcDims{N, nx, nu, nc});
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, mpc_subproblem_kernel, kThreads, (size_t)smem);
+  info[0] = kTeam;
+  info[1] = kTeams;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = (int)smem;
+  info[5] = blocks;
+  return (int)cudaGetLastError();
+}
+
+// Launches K4 on `stream`. Arrays are instance-major (B, floats per
+// instance); itol_prev, dxn_prev, newton0, done and the scalar outputs
+// are (B,). Returns cudaGetLastError().
 int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
                       const float* q, const float* r, const float* c,
                       const float* x0, const float* d, const float* Q,
@@ -107,9 +140,11 @@ int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
   SubArgs a{q, r, c, x0, d, Q, R, S, A, Bm, E, L,
             zk, lk, vk, yk, itol_prev, dxn_prev, newton0, done,
             z, l, v, y, Eo, newton, lfail, Ek, success, itol, dxn, ws};
-  const int blocks = (B + kThreads - 1) / kThreads;
-  mpc_subproblem_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      MpcDims{N, nx, nu, nc}, B, o, a);
+  const MpcDims D{N, nx, nu, nc};
+  const int blocks = (B + kTeams - 1) / kTeams;
+  mpc_subproblem_kernel<<<blocks, kThreads,
+                          (size_t)subproblem_smem_bytes(D),
+                          (cudaStream_t)stream>>>(D, B, o, a);
   return (int)cudaGetLastError();
 }
 

@@ -8,11 +8,11 @@
 // dual recovery (dv, dy) is a wide elementwise pass left to PyTorch, as
 // the JAX wrapper leaves it to XLA.
 //
-// Design: one thread per instance. The recursion is sequential in the
-// horizon and every stage is a chain of tiny (nx <= 32) dependent
-// factorizations, so the work per instance does not split across threads
-// without synchronizing at every pivot. Each thread therefore runs its
-// own recursion; the parallelism is the batch. All per-instance arrays,
+// Design: one thread per instance (riccati.cuh's team of one). The
+// recursion is sequential in the horizon and every stage is a chain of
+// tiny (nx <= 32) dependent factorizations; each thread runs its own
+// recursion and the parallelism is the batch (K2 and K4 split the same
+// device code over a team per instance). All per-instance arrays,
 // inputs, outputs and the stage-factor scratch (Lc, M, SM, SG, AM, P, th,
 // h and the stage temporaries, (N+1)(3nx^2 + nu^2 + 2nx nu) + O(N nx)
 // floats) are batch-last in device memory, so each warp access is one
@@ -54,11 +54,13 @@ __global__ void riccati_step_kernel(MpcDims D, int B, float alpha,
   P.B = lane_of(Bm, B, b);
   P.E = lane_of(E, B, b);
   P.L = lane_of(L, B, b);
-  riccati_factor_solve(D, sigma[b], alpha, om_alpha, P, lane_of(v, B, b),
-                       lane_of(y, B, b), lane_of(vbar, B, b),
-                       lane_of(rz, B, b), lane_of(rl, B, b),
-                       lane_of(rv, B, b), lane_of(dz, B, b),
-                       lane_of(dl, B, b), lane_of(ws, B, b));
+  const Lane w = lane_of(ws, B, b);
+  riccati_factor_solve(Solo{}, D, sigma[b], alpha, om_alpha, P,
+                       lane_of(v, B, b), lane_of(y, B, b),
+                       lane_of(vbar, B, b), lane_of(rz, B, b),
+                       lane_of(rl, B, b), lane_of(rv, B, b),
+                       lane_of(dz, B, b), lane_of(dl, B, b), w,
+                       w.at(ric_layout(D).stage));
 }
 
 }  // namespace

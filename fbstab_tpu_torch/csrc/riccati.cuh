@@ -1,7 +1,7 @@
 // The Riccati factor-and-solve of one MPC Newton step, for one instance,
 // as a device function shared by both kernels (the Newton-step kernel in
-// riccati.cu and the fused solver in mpc_solve.cu), as the Pallas kernels
-// share ops/riccati_pallas.py::riccati_factor_solve.
+// riccati.cu and the fused solvers in mpc_solve.cu and mpc_subproblem.cu),
+// as the Pallas kernels share ops/riccati_pallas.py::riccati_factor_solve.
 //
 // It computes, with the recurrences of riccati_linear_solver.cc:77-344:
 // PFB weights from (y, v, vbar, sigma); the barrier-augmented stage
@@ -10,21 +10,45 @@
 // Choleskys (L, M, SM, SG, AM, P per stage); the forward vector recursion
 // (theta, h); and the backward substitution for (dz, dl). Failure of a
 // Cholesky (a non-positive pivot) yields NaNs that propagate to dz, dl.
+//
+// The work of a stage is split over the instance's team (fbstab_common.cuh):
+// the weights elementwise, the Hessians and the products over their
+// (row, column) entries, T = inv(Lf Lf') over its columns, the right
+// solves over their rows, the Choleskys column by column, the triangular
+// solves of the vector recursions sequential in k with the rows below
+// updated by the team. Every entry is computed by one thread in the order
+// the team of one computes it, so the factors and the step are bit for bit
+// the same for any team size.
+//
+// A team that stages (K2, K4) works on the current stage in shared memory:
+// it copies E, L (factor pass) or the stage's factors (vector passes) into
+// its stage block in one coalesced sweep, computes the stage's factors
+// there and writes them to device memory in one sweep, so the dependent
+// chains of the solves wait on shared memory, not on device memory. The
+// team of one (K1) reads and writes everything in place.
 #pragma once
 
 #include "fbstab_common.cuh"
 
-// Offsets (in floats per instance) of the Newton-step scratch.
+// Offsets (in floats per instance) of the Newton-step scratch: the stage
+// factors and vectors, then the stage block, whose offsets Qh ... P count
+// from its start: the current stage's Hessians, T, the weights' ratio
+// gamma ./ mus, four vector temporaries, and the staged operands (E, L, the
+// carried factor Lf and the next one Ln, M, SM, SG, AM, P). K1 keeps the
+// stage block in its scratch at `stage`; K2 and K4 keep it in shared
+// memory.
 struct RicLayout {
-  long long Lc, M, SM, SG, AM, P, th, h, gam, mus, r1;
-  long long Qh, Rh, Sh, T, v0, v1, v2, v3, total;
+  int Lc, M, SM, SG, AM, P, th, h, gam, mus, r1, stage;
+  int Qh, Rh, Sh, T, gr, v0, v1, v2, v3;
+  int sE, sL, sLf, sLn, sM, sSM, sSG, sAM, sP, stage_floats;
+  int total;
 };
 
 FB_HD RicLayout ric_layout(const MpcDims& D) {
-  long long N1 = D.N + 1, nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
-  long long nmax = nx > nu ? nx : nu;
+  int N1 = D.N + 1, nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
+  int nmax = nx > nu ? nx : nu;
   RicLayout w;
-  long long o = 0;
+  int o = 0;
   w.Lc = o; o += N1 * nx * nx;
   w.M = o;  o += N1 * nx * nx;
   w.SM = o; o += N1 * nu * nx;
@@ -36,111 +60,173 @@ FB_HD RicLayout ric_layout(const MpcDims& D) {
   w.gam = o; o += N1 * nc;
   w.mus = o; o += N1 * nc;
   w.r1 = o; o += N1 * ns;
+  w.stage = o;
+  o = 0;
   w.Qh = o; o += nx * nx;
   w.Rh = o; o += nu * nu;
   w.Sh = o; o += nu * nx;
   w.T = o;  o += nx * nx;
+  w.gr = o; o += nc;
   w.v0 = o; o += nmax;
   w.v1 = o; o += nmax;
   w.v2 = o; o += nmax;
   w.v3 = o; o += nmax;
-  w.total = o;
+  w.sE = o;  o += nc * nx;
+  w.sL = o;  o += nc * nu;
+  w.sLf = o; o += nx * nx;
+  w.sLn = o; o += nx * nx;
+  w.sM = o;  o += nx * nx;
+  w.sSM = o; o += nu * nx;
+  w.sSG = o; o += nu * nu;
+  w.sAM = o; o += nx * nx;
+  w.sP = o;  o += nx * nu;
+  w.stage_floats = o;
+  w.total = w.stage + w.stage_floats;
   return w;
 }
 
-// Rows of Y = X inv(M)' for lower M (m x m) and X (rows x m), in place on
-// X: row r of Y is inv(M) applied to row r of X.
-FB_DEV void ric_right_solve_T(Lane X, int rows, Lane M, int m) {
-  for (int r = 0; r < rows; ++r) fb_trsv_lower(M, m, X.at(r * m));
+// The working views of one stage's factors: in the stage block for a team
+// that stages, in the scratch at stage i otherwise.
+struct StageFactors {
+  Lane M, SM, SG, AM, P;
+};
+
+template <class Tm>
+FB_DEV StageFactors ric_factors_at(const Tm& tm, const MpcDims& D,
+                                   const RicLayout& o, Lane w, Lane st,
+                                   int i) {
+  const long long nx = D.nx, nu = D.nu;
+  return StageFactors{
+      fb_work(tm, st.at(o.sM), w.at(o.M + i * nx * nx)),
+      fb_work(tm, st.at(o.sSM), w.at(o.SM + i * nu * nx)),
+      fb_work(tm, st.at(o.sSG), w.at(o.SG + i * nu * nu)),
+      fb_work(tm, st.at(o.sAM), w.at(o.AM + i * nx * nx)),
+      fb_work(tm, st.at(o.sP), w.at(o.P + i * nx * nu))};
 }
 
-// Stage Hessians of stage i into w.Qh, w.Rh, w.Sh.
-FB_DEV void ric_stage_hessians(const MpcDims& D, const MpcProb& P,
-                               const RicLayout& o, Lane w, float sigma,
-                               int i) {
-  const int nx = D.nx, nu = D.nu, nc = D.nc;
-  Lane E = P.E.at((long long)i * nc * nx), L = P.L.at((long long)i * nc * nu);
+// Stage i's factors (M, SM, SG and, before the last stage, AM and P) and
+// the factor Lc at stage `j` into the stage block (Lc at sLf), for a team
+// that stages; visible after the caller's next sync.
+template <class Tm>
+FB_DEV void ric_stage_in(const Tm& tm, const MpcDims& D, const RicLayout& o,
+                         Lane w, Lane st, int i, int j) {
+  const long long nx = D.nx, nu = D.nu;
+  fb_stage_in(tm, st.at(o.sM), w.at(o.M + i * nx * nx), nx * nx);
+  fb_stage_in(tm, st.at(o.sSM), w.at(o.SM + i * nu * nx), nu * nx);
+  fb_stage_in(tm, st.at(o.sSG), w.at(o.SG + i * nu * nu), nu * nu);
+  if (i < D.N) {
+    fb_stage_in(tm, st.at(o.sAM), w.at(o.AM + i * nx * nx), nx * nx);
+    fb_stage_in(tm, st.at(o.sP), w.at(o.P + i * nx * nu), nx * nu);
+  }
+  fb_stage_in(tm, st.at(o.sLf), w.at(o.Lc + j * nx * nx), nx * nx);
+}
+
+// Stage i's factors from the stage block to the scratch (the last stage
+// has no AM, P).
+template <class Tm>
+FB_DEV void ric_stage_out(const Tm& tm, const MpcDims& D, const RicLayout& o,
+                          Lane w, Lane st, int i) {
+  const long long nx = D.nx, nu = D.nu;
+  fb_stage_out(tm, w.at(o.M + i * nx * nx), st.at(o.sM), nx * nx);
+  fb_stage_out(tm, w.at(o.SM + i * nu * nx), st.at(o.sSM), nu * nx);
+  fb_stage_out(tm, w.at(o.SG + i * nu * nu), st.at(o.sSG), nu * nu);
+  if (i < D.N) {
+    fb_stage_out(tm, w.at(o.AM + i * nx * nx), st.at(o.sAM), nx * nx);
+    fb_stage_out(tm, w.at(o.P + i * nx * nu), st.at(o.sP), nx * nu);
+  }
+}
+
+// M, SM, SG of stage i (riccati_linear_solver.cc:140-151, 191-209) into
+// F from the carried factor Lf = Lc[i], by way of the stage Hessians
+// Qh, Rh, Sh in the stage block.
+template <class Tm>
+FB_DEV void ric_stage_factor(const Tm& tm, const MpcDims& D,
+                             const MpcProb& P, const RicLayout& o, Lane w,
+                             Lane st, float sigma, int i, Lane Lf,
+                             const StageFactors& F) {
+  const int nx = D.nx, nu = D.nu, nc = D.nc, T = tm.size();
+  const Lane E = fb_stage_in(tm, st.at(o.sE),
+                             P.E.at((long long)i * nc * nx), nc * nx);
+  const Lane L = fb_stage_in(tm, st.at(o.sL),
+                             P.L.at((long long)i * nc * nu), nc * nu);
   Lane gam = w.at(o.gam + (long long)i * nc), mus = w.at(o.mus + (long long)i * nc);
-  Lane Qh = w.at(o.Qh), Rh = w.at(o.Rh), Sh = w.at(o.Sh);
+  Lane Qh = st.at(o.Qh), Rh = st.at(o.Rh), Sh = st.at(o.Sh), gr = st.at(o.gr);
   Lane Q = P.Q.at((long long)i * nx * nx), R = P.R.at((long long)i * nu * nu),
        S = P.S.at((long long)i * nu * nx);
-  for (int r = 0; r < nx; ++r)
-    for (int c = 0; c < nx; ++c) {
-      float s = 0.0f;
+  for (int k = tm.rank(); k < nc; k += T) gr[k] = gam[k] / mus[k];
+  tm.sync();
+  // The stage Hessians.
+  const int nxx = nx * nx, nuu = nu * nu;
+  for (int t = tm.rank(); t < nxx + nuu + nu * nx; t += T) {
+    float s = 0.0f;
+    if (t < nxx) {
+      const int r = t / nx, c = t % nx;
       for (int k = 0; k < nc; ++k)
-        s += E[k * nx + r] * ((gam[k] / mus[k]) * E[k * nx + c]);
-      Qh[r * nx + c] = (Q[r * nx + c] + (r == c ? sigma : 0.0f)) + s;
-    }
-  for (int r = 0; r < nu; ++r)
-    for (int c = 0; c < nu; ++c) {
-      float s = 0.0f;
+        s += E[k * nx + r] * (gr[k] * E[k * nx + c]);
+      Qh[t] = (Q[t] + (r == c ? sigma : 0.0f)) + s;
+    } else if (t < nxx + nuu) {
+      const int u = t - nxx, r = u / nu, c = u % nu;
       for (int k = 0; k < nc; ++k)
-        s += L[k * nu + r] * ((gam[k] / mus[k]) * L[k * nu + c]);
-      Rh[r * nu + c] = (R[r * nu + c] + (r == c ? sigma : 0.0f)) + s;
-    }
-  for (int r = 0; r < nu; ++r)
-    for (int c = 0; c < nx; ++c) {
-      float s = 0.0f;
+        s += L[k * nu + r] * (gr[k] * L[k * nu + c]);
+      Rh[u] = (R[u] + (r == c ? sigma : 0.0f)) + s;
+    } else {
+      const int u = t - nxx - nuu, r = u / nx, c = u % nx;
       for (int k = 0; k < nc; ++k)
-        s += L[k * nu + r] * ((gam[k] / mus[k]) * E[k * nx + c]);
-      Sh[r * nx + c] = S[r * nx + c] + s;
+        s += L[k * nu + r] * (gr[k] * E[k * nx + c]);
+      Sh[u] = S[u] + s;
     }
-}
-
-// M, SM, SG of stage i from the carried factor Lc[i]
-// (riccati_linear_solver.cc:140-151, 191-209).
-FB_DEV void ric_stage_factor(const MpcDims& D, const MpcProb& P,
-                             const RicLayout& o, Lane w, float sigma, int i) {
-  const int nx = D.nx, nu = D.nu;
-  ric_stage_hessians(D, P, o, w, sigma, i);
-  Lane Lf = w.at(o.Lc + (long long)i * nx * nx);
-  Lane M = w.at(o.M + (long long)i * nx * nx);
-  Lane SM = w.at(o.SM + (long long)i * nu * nx);
-  Lane SG = w.at(o.SG + (long long)i * nu * nu);
-  Lane T = w.at(o.T), Qh = w.at(o.Qh), Rh = w.at(o.Rh), Sh = w.at(o.Sh);
-  Lane col = w.at(o.v0);
-  // T = inv(Lf Lf'), column by column.
-  for (int j = 0; j < nx; ++j) {
-    for (int r = 0; r < nx; ++r) col[r] = (r == j) ? 1.0f : 0.0f;
-    fb_cho_solve(Lf, nx, col);
-    for (int r = 0; r < nx; ++r) T[r * nx + j] = col[r];
   }
+  // T = inv(Lf Lf'), one column per thread.
+  Lane Tb = st.at(o.T);
+  for (int j = tm.rank(); j < nx; j += T) {
+    Lane col = fb_col(Tb, nx, j);
+    for (int r = 0; r < nx; ++r) col[r] = (r == j) ? 1.0f : 0.0f;
+    fb_cho_solve(Solo{}, Lf, nx, col);
+  }
+  tm.sync();
   // M = chol(Qh + T).
-  for (int k = 0; k < nx * nx; ++k) M[k] = Qh[k] + T[k];
-  fb_chol(M, nx);
+  for (int k = tm.rank(); k < nx * nx; k += T) F.M[k] = Qh[k] + Tb[k];
+  tm.sync();
+  fb_chol(tm, F.M, nx);
   // SM = Sh inv(M)'.
-  for (int k = 0; k < nu * nx; ++k) SM[k] = Sh[k];
-  ric_right_solve_T(SM, nu, M, nx);
+  for (int r = tm.rank(); r < nu; r += T) {
+    for (int k = 0; k < nx; ++k) F.SM[r * nx + k] = Sh[r * nx + k];
+    fb_trsv_lower(Solo{}, F.M, nx, F.SM.at(r * nx));
+  }
+  tm.sync();
   // SG = chol(Rh - SM SM').
-  for (int r = 0; r < nu; ++r)
-    for (int c = 0; c < nu; ++c) {
-      float s = 0.0f;
-      for (int k = 0; k < nx; ++k) s += SM[r * nx + k] * SM[c * nx + k];
-      SG[r * nu + c] = Rh[r * nu + c] - s;
-    }
-  fb_chol(SG, nu);
+  for (int t = tm.rank(); t < nu * nu; t += T) {
+    const int r = t / nu, c = t % nu;
+    float s = 0.0f;
+    for (int k = 0; k < nx; ++k) s += F.SM[r * nx + k] * F.SM[c * nx + k];
+    F.SG[t] = Rh[t] - s;
+  }
+  tm.sync();
+  fb_chol(tm, F.SG, nu);
 }
 
 // r1(i) = rz(i) - [E(i); L(i)]' (rv(i) ./ mus(i)) for every stage
 // (riccati_linear_solver.cc:230-235), stage-major (N+1, nx+nu).
-FB_DEV void ric_r1(const MpcDims& D, const MpcProb& P, const RicLayout& o,
-                   Lane w, Lane rz, Lane rv) {
+template <class Tm>
+FB_DEV void ric_r1(const Tm& tm, const MpcDims& D, const MpcProb& P,
+                   const RicLayout& o, Lane w, Lane rz, Lane rv) {
   const int nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
-  for (int i = 0; i <= D.N; ++i) {
-    Lane E = P.E.at((long long)i * nc * nx), L = P.L.at((long long)i * nc * nu);
+  const int rows = (D.N + 1) * ns;
+  for (int t = tm.rank(); t < rows; t += tm.size()) {
+    const int i = t / ns, j = t % ns;
     Lane mus = w.at(o.mus + (long long)i * nc);
-    Lane r1 = w.at(o.r1 + (long long)i * ns);
-    for (int j = 0; j < nx; ++j) {
-      float s = 0.0f;
+    float s = 0.0f;
+    if (j < nx) {
+      Lane E = P.E.at((long long)i * nc * nx);
       for (int c = 0; c < nc; ++c) s += E[c * nx + j] * (rv[i * nc + c] / mus[c]);
-      r1[j] = rz[(long long)i * ns + j] - s;
+    } else {
+      Lane L = P.L.at((long long)i * nc * nu);
+      for (int c = 0; c < nc; ++c)
+        s += L[c * nu + (j - nx)] * (rv[i * nc + c] / mus[c]);
     }
-    for (int j = 0; j < nu; ++j) {
-      float s = 0.0f;
-      for (int c = 0; c < nc; ++c) s += L[c * nu + j] * (rv[i * nc + c] / mus[c]);
-      r1[nx + j] = rz[(long long)i * ns + nx + j] - s;
-    }
+    w[o.r1 + t] = rz[t] - s;
   }
+  tm.sync();
 }
 
 // One Newton step for one instance.
@@ -148,17 +234,23 @@ FB_DEV void ric_r1(const MpcDims& D, const MpcProb& P, const RicLayout& o,
 //   v, y, vbar (N+1, nc): the iterate pieces;
 //   rz (N+1, nx+nu), rl (N+1, nx), rv (N+1, nc): the NEGATED inner
 //   residual; dz (N+1, nx+nu), dl (N+1, nx): outputs;
-//   w: scratch laid out by ric_layout. After the call w.gam / w.mus hold
-//   the PFB weights (the dual recovery dv, dy uses them).
-FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
-                                 float om_alpha, const MpcProb& P, Lane v,
-                                 Lane y, Lane vbar, Lane rz, Lane rl, Lane rv,
-                                 Lane dz, Lane dl, Lane w) {
+//   w: scratch laid out by ric_layout; st: the stage block. After the call
+//   w.gam / w.mus hold the PFB weights (the dual recovery dv, dy uses
+//   them). Vector element j belongs to thread j % size throughout the
+//   vector recursions (the ownership of fb_trsv_lower), so a thread's
+//   writes there feed its own triangular solves without a sync.
+template <class Tm>
+FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
+                                 float alpha, float om_alpha,
+                                 const MpcProb& P, Lane v, Lane y, Lane vbar,
+                                 Lane rz, Lane rl, Lane rv, Lane dz, Lane dl,
+                                 Lane w, Lane st) {
   const int N = D.N, nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
+  const int T = tm.size(), me = tm.rank();
   const RicLayout o = ric_layout(D);
   const long long xx = (long long)nx * nx;
 
-  for (int k = 0; k < (N + 1) * nc; ++k) {
+  for (int k = me; k < (N + 1) * nc; k += T) {
     float ys = y[k] + sigma * (v[k] - vbar[k]);
     float g, m;
     fb_pfb_weights(ys, v[k], sigma, alpha, om_alpha, g, m);
@@ -167,121 +259,142 @@ FB_DEV void riccati_factor_solve(const MpcDims& D, float sigma, float alpha,
   }
 
   // ---- Forward matrix recursion (cc:125-188). L(0) = sqrt(sigma) I. ----
+  // Lf carries Lc[i]; a staging team swaps its two stage-block copies.
+  Lane Lf = fb_work(tm, st.at(o.sLf), w.at(o.Lc));
+  Lane Lnb = st.at(o.sLn);
   {
-    Lane L0 = w.at(o.Lc);
     float sq = sqrtf(sigma);
-    for (int r = 0; r < nx; ++r)
-      for (int c = 0; c < nx; ++c) L0[r * nx + c] = (r == c) ? sq : 0.0f;
+    for (int t = me; t < nx * nx; t += T) {
+      Lf[t] = (t / nx == t % nx) ? sq : 0.0f;
+    }
+    fb_stage_out(tm, w.at(o.Lc), Lf, nx * nx);
   }
+  tm.sync();
   for (int i = 0; i < N; ++i) {
-    ric_stage_factor(D, P, o, w, sigma, i);
-    Lane M = w.at(o.M + i * xx), SM = w.at(o.SM + (long long)i * nu * nx);
-    Lane SG = w.at(o.SG + (long long)i * nu * nu);
-    Lane AM = w.at(o.AM + i * xx), Pm = w.at(o.P + (long long)i * nx * nu);
+    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
+    ric_stage_factor(tm, D, P, o, w, st, sigma, i, Lf, F);
     Lane A = P.A.at(i * xx), Bm = P.B.at((long long)i * nx * nu);
-    // AM = A inv(M)'.
-    for (int k = 0; k < nx * nx; ++k) AM[k] = A[k];
-    ric_right_solve_T(AM, nx, M, nx);
-    // P = (AM SM' - B) inv(SG)'.
-    for (int r = 0; r < nx; ++r)
+    // Row r: AM = A inv(M)', then P = (AM SM' - B) inv(SG)'.
+    for (int r = me; r < nx; r += T) {
+      for (int k = 0; k < nx; ++k) F.AM[r * nx + k] = A[r * nx + k];
+      fb_trsv_lower(Solo{}, F.M, nx, F.AM.at(r * nx));
       for (int c = 0; c < nu; ++c) {
         float s = 0.0f;
-        for (int k = 0; k < nx; ++k) s += AM[r * nx + k] * SM[c * nx + k];
-        Pm[r * nu + c] = s - Bm[r * nu + c];
+        for (int k = 0; k < nx; ++k) s += F.AM[r * nx + k] * F.SM[c * nx + k];
+        F.P[r * nu + c] = s - Bm[r * nu + c];
       }
-    ric_right_solve_T(Pm, nx, SG, nu);
-    // L(i+1) = chol(sigma I + P P' + AM AM').
-    Lane Ln = w.at(o.Lc + (i + 1) * xx);
-    for (int r = 0; r < nx; ++r)
-      for (int c = 0; c < nx; ++c) {
-        float pp = 0.0f, aa = 0.0f;
-        for (int k = 0; k < nu; ++k) pp += Pm[r * nu + k] * Pm[c * nu + k];
-        for (int k = 0; k < nx; ++k) aa += AM[r * nx + k] * AM[c * nx + k];
-        Ln[r * nx + c] = ((r == c ? sigma : 0.0f) + pp) + aa;
-      }
-    fb_chol(Ln, nx);
+      fb_trsv_lower(Solo{}, F.SG, nu, F.P.at(r * nu));
+    }
+    tm.sync();
+    // L(i+1) = chol(sigma I + P P' + AM AM') (its lower triangle).
+    Lane Ln = fb_work(tm, Lnb, w.at(o.Lc + (i + 1) * xx));
+    for (int t = me; t < nx * nx; t += T) {
+      const int r = t / nx, c = t % nx;
+      if (c > r) continue;
+      float pp = 0.0f, aa = 0.0f;
+      for (int k = 0; k < nu; ++k) pp += F.P[r * nu + k] * F.P[c * nu + k];
+      for (int k = 0; k < nx; ++k) aa += F.AM[r * nx + k] * F.AM[c * nx + k];
+      Ln[t] = ((r == c ? sigma : 0.0f) + pp) + aa;
+    }
+    tm.sync();
+    fb_chol(tm, Ln, nx);
+    ric_stage_out(tm, D, o, w, st, i);
+    fb_stage_out(tm, w.at(o.Lc + (i + 1) * xx), Ln, nx * nx);
+    Lnb = Lf;
+    Lf = Ln;
   }
-  ric_stage_factor(D, P, o, w, sigma, N);
+  ric_stage_factor(tm, D, P, o, w, st, sigma, N, Lf,
+                   ric_factors_at(tm, D, o, w, st, N));
+  ric_stage_out(tm, D, o, w, st, N);
 
   // ---- Forward vector recursion (cc:239-262). ----
-  ric_r1(D, P, o, w, rz, rv);
+  ric_r1(tm, D, P, o, w, rz, rv);
   Lane th = w.at(o.th), h = w.at(o.h), r1 = w.at(o.r1);
-  Lane tx = w.at(o.v0), tu = w.at(o.v1);
-  for (int j = 0; j < nx; ++j) th[j] = -rl[j];
-  for (int j = 0; j < nx; ++j) h[j] = th[j];
-  fb_cho_solve(w.at(o.Lc), nx, h);
-  for (int j = 0; j < nx; ++j) h[j] = h[j] - r1[j];
+  Lane tx = st.at(o.v0), tu = st.at(o.v1);
+  for (int j = me; j < nx; j += T) {
+    th[j] = -rl[j];
+    h[j] = th[j];
+  }
+  Lf = fb_stage_in(tm, st.at(o.sLf), w.at(o.Lc), nx * nx);
+  tm.sync();
+  fb_cho_solve(tm, Lf, nx, h);
+  for (int j = me; j < nx; j += T) h[j] = h[j] - r1[j];
   for (int i = 0; i < N; ++i) {
-    Lane M = w.at(o.M + i * xx), SM = w.at(o.SM + (long long)i * nu * nx);
-    Lane SG = w.at(o.SG + (long long)i * nu * nu);
-    Lane AM = w.at(o.AM + i * xx), Pm = w.at(o.P + (long long)i * nx * nu);
-    for (int j = 0; j < nx; ++j) tx[j] = h[i * nx + j];
-    fb_trsv_lower(M, nx, tx);
-    for (int j = 0; j < nu; ++j) {
+    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
+    ric_stage_in(tm, D, o, w, st, i, i + 1);
+    Lf = fb_work(tm, st.at(o.sLf), w.at(o.Lc + (i + 1) * xx));
+    for (int j = me; j < nx; j += T) tx[j] = h[i * nx + j];
+    tm.sync();
+    fb_trsv_lower(tm, F.M, nx, tx);
+    for (int j = me; j < nu; j += T) {
       float s = 0.0f;
-      for (int k = 0; k < nx; ++k) s += SM[j * nx + k] * tx[k];
+      for (int k = 0; k < nx; ++k) s += F.SM[j * nx + k] * tx[k];
       tu[j] = s + r1[(long long)i * ns + nx + j];
     }
-    fb_trsv_lower(SG, nu, tu);
+    fb_trsv_lower(tm, F.SG, nu, tu);
     Lane thn = th.at((long long)(i + 1) * nx), hn = h.at((long long)(i + 1) * nx);
-    for (int j = 0; j < nx; ++j) {
+    for (int j = me; j < nx; j += T) {
       float pt = 0.0f, at = 0.0f;
-      for (int k = 0; k < nu; ++k) pt += Pm[j * nu + k] * tu[k];
-      for (int k = 0; k < nx; ++k) at += AM[j * nx + k] * tx[k];
+      for (int k = 0; k < nu; ++k) pt += F.P[j * nu + k] * tu[k];
+      for (int k = 0; k < nx; ++k) at += F.AM[j * nx + k] * tx[k];
       thn[j] = (pt + at) - rl[(long long)(i + 1) * nx + j];
       hn[j] = thn[j];
     }
-    fb_cho_solve(w.at(o.Lc + (i + 1) * xx), nx, hn);
-    for (int j = 0; j < nx; ++j) hn[j] = hn[j] - r1[(long long)(i + 1) * ns + j];
+    fb_cho_solve(tm, Lf, nx, hn);
+    for (int j = me; j < nx; j += T)
+      hn[j] = hn[j] - r1[(long long)(i + 1) * ns + j];
   }
+  tm.sync();
 
   // ---- Backward recursion (cc:266-327). ----
-  Lane t2 = w.at(o.v2), t3 = w.at(o.v3);
+  Lane t2 = st.at(o.v2), t3 = st.at(o.v3);
   for (int i = N; i >= 0; --i) {
-    Lane M = w.at(o.M + i * xx), SM = w.at(o.SM + (long long)i * nu * nx);
-    Lane SG = w.at(o.SG + (long long)i * nu * nu);
-    Lane Lf = w.at(o.Lc + i * xx);
+    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
+    ric_stage_in(tm, D, o, w, st, i, i);
+    Lf = fb_work(tm, st.at(o.sLf), w.at(o.Lc + i * xx));
     Lane xi = dz.at((long long)i * ns), ui = dz.at((long long)i * ns + nx);
     Lane li = dl.at((long long)i * nx);
     // tx = inv(M) h; u = inv(SG)(SM tx + r1u).
-    for (int j = 0; j < nx; ++j) tx[j] = h[(long long)i * nx + j];
-    fb_trsv_lower(M, nx, tx);
-    for (int j = 0; j < nu; ++j) {
+    for (int j = me; j < nx; j += T) tx[j] = h[(long long)i * nx + j];
+    tm.sync();
+    fb_trsv_lower(tm, F.M, nx, tx);
+    for (int j = me; j < nu; j += T) {
       float s = 0.0f;
-      for (int k = 0; k < nx; ++k) s += SM[j * nx + k] * tx[k];
+      for (int k = 0; k < nx; ++k) s += F.SM[j * nx + k] * tx[k];
       ui[j] = s + r1[(long long)i * ns + nx + j];
     }
-    fb_trsv_lower(SG, nu, ui);
+    fb_trsv_lower(tm, F.SG, nu, ui);
     if (i < N) {
       // u = inv(SG')(u + P' l(i+1)).
-      Lane Pm = w.at(o.P + (long long)i * nx * nu);
       Lane ln = dl.at((long long)(i + 1) * nx);
-      for (int j = 0; j < nu; ++j) {
+      for (int j = me; j < nu; j += T) {
         float s = 0.0f;
-        for (int k = 0; k < nx; ++k) s += Pm[k * nu + j] * ln[k];
+        for (int k = 0; k < nx; ++k) s += F.P[k * nu + j] * ln[k];
         ui[j] = ui[j] + s;
       }
     }
-    fb_trsv_upperT(SG, nu, ui);
+    fb_trsv_upperT(tm, F.SG, nu, ui);
     // x = -inv(M')(tx + SM' u [+ AM' l(i+1)]).
-    for (int j = 0; j < nx; ++j) {
+    for (int j = me; j < nx; j += T) {
       float s = 0.0f;
-      for (int k = 0; k < nu; ++k) s += SM[k * nx + j] * ui[k];
+      for (int k = 0; k < nu; ++k) s += F.SM[k * nx + j] * ui[k];
       float acc = tx[j] + s;
       if (i < N) {
-        Lane AM = w.at(o.AM + i * xx);
         Lane ln = dl.at((long long)(i + 1) * nx);
         float a = 0.0f;
-        for (int k = 0; k < nx; ++k) a += AM[k * nx + j] * ln[k];
+        for (int k = 0; k < nx; ++k) a += F.AM[k * nx + j] * ln[k];
         acc = acc + a;
       }
       t2[j] = acc;
     }
-    fb_trsv_upperT(M, nx, t2);
-    for (int j = 0; j < nx; ++j) xi[j] = -t2[j];
+    fb_trsv_upperT(tm, F.M, nx, t2);
     // l = -inv(L L')(theta + x).
-    for (int j = 0; j < nx; ++j) t3[j] = th[(long long)i * nx + j] + xi[j];
-    fb_cho_solve(Lf, nx, t3);
-    for (int j = 0; j < nx; ++j) li[j] = -t3[j];
+    for (int j = me; j < nx; j += T) {
+      xi[j] = -t2[j];
+      t3[j] = th[(long long)i * nx + j] + xi[j];
+    }
+    fb_cho_solve(tm, Lf, nx, t3);
+    for (int j = me; j < nx; j += T) li[j] = -t3[j];
+    tm.sync();
   }
 }

@@ -390,10 +390,11 @@ def _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha):
 # step. Tier 1, the fused solver K2, takes float32 batches on the card
 # within SOLVE_DIMS_CAP; tier 2, the host outer loop on the per-subproblem
 # kernel K4 (models/mpc_subfused.py), takes those beyond it within
-# SUBPROBLEM_DIMS_CAP. The kernels size everything at run time (one thread
-# per instance, scratch in device memory), so the caps are not resource
-# limits: each is the envelope of the shapes its kernel was held against
-# its plain version at on an H100. K2: the headline (N=30 nx=8 nu=3 nc=6)
+# SUBPROBLEM_DIMS_CAP. The kernels size everything at run time (scratch
+# in device memory, a few KB of shared memory per block), so the caps are
+# not resource limits: each is the envelope of the shapes its kernel was
+# held against its plain version at on an H100. K2: the headline (N=30
+# nx=8 nu=3 nc=6)
 # and the three small audited plants (up to N=40 nx=6 nc=12). K4: the
 # copolymerization reactor (N=80 nx=18 nu=5 nc=10). Larger shapes run
 # tier 3, the lockstep solver with K1 as the Newton step.

@@ -66,6 +66,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfbstab_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_lines(source: str, log: str | None = None) -> list:
+    """The register and spill lines ptxas printed for one source of csrc/
+    (e.g. "mpc_solve.cu") in a build log, by default the current
+    library's."""
+    if log is None:
+        log = library_path().with_suffix(".log").read_text()
+    part = log.split(f"== {source}")[-1].split("==")[0]
+    return [ln.strip() for ln in part.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 def _compile(out: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -106,19 +117,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_riccati_ws_floats.restype = ctypes.c_longlong
     lib.fb_riccati_step.argtypes = [I, I, I, I, I, F, F] + [P] * 17 + [P]
     lib.fb_riccati_step.restype = I
-    lib.fb_solve_ws_floats.argtypes = [I, I, I, I]
-    lib.fb_solve_ws_floats.restype = ctypes.c_longlong
+    for fn in (lib.fb_solve_ws_floats, lib.fb_solve_smem_bytes,
+               lib.fb_subproblem_ws_floats, lib.fb_subproblem_smem_bytes):
+        fn.argtypes = [I, I, I, I]
+        fn.restype = ctypes.c_longlong
     lib.fb_mpc_solve.argtypes = [I, I, I, I, I, SolveOpts] + [P] * 25 + [P]
     lib.fb_mpc_solve.restype = I
     lib.fb_dense_ws_floats.argtypes = [I, I, I]
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I, I, I, I, SolveOpts] + [P] * 19 + [P]
     lib.fb_dense_solve.restype = I
-    lib.fb_subproblem_ws_floats.argtypes = [I, I, I, I]
-    lib.fb_subproblem_ws_floats.restype = ctypes.c_longlong
     lib.fb_mpc_subproblem.argtypes = ([I, I, I, I, I, SolveOpts] + [P] * 32
                                       + [P])
     lib.fb_mpc_subproblem.restype = I
+    for fn in (lib.fb_mpc_solve_info, lib.fb_mpc_subproblem_info):
+        fn.argtypes = [I, I, I, I, P]
+        fn.restype = I
     lib.fb_combine_ws_floats.argtypes = [I]
     lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I, I, I] + [P] * 16 + [P]
@@ -129,6 +143,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_mxu_probe.restype = I
     bind_df_probe(lib)
     return lib
+
+
+def kernel_info(fn, N, nx, nu, nc) -> dict:
+    """A fused MPC kernel's launch shape at these dims, from its C info
+    function (`lib.fb_mpc_solve_info` or `lib.fb_mpc_subproblem_info`)."""
+    info = (ctypes.c_int * 6)()
+    check(fn(N, nx, nu, nc, info), "kernel info")
+    return dict(zip(("team", "teams_per_block", "registers", "local_bytes",
+                     "smem_bytes", "blocks_per_sm"), info))
 
 
 def bind_df_probe(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -4,7 +4,8 @@ Counterpart of `fbstab_tpu/ops/mpc_solve_pallas.py::fbstab_mpc_solve_fused`
 in its standard mode: one launch runs the whole algorithm (outer proximal
 loop, inner Newton loop on the shared Riccati device function,
 nonmonotone linesearch, infeasibility checks, exit flags) for every
-instance, one thread per instance.
+instance, a team of threads per instance, on the batch-first
+(instance-major) tensors as torch holds them.
 
 `fbstab_mpc_solve_fused` takes the plain version (`fbstab_mpc_solve_plain`,
 the batched lockstep solver of core/algorithm.py on the MPC operators with
@@ -18,8 +19,18 @@ import torch
 
 from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
-from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, to_batch_last
+from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
 from fbstab_tpu_torch.options import Options
+
+# The dynamic shared memory a block of K2 or K4 gets (the default; they do
+# not opt in to more).
+SMEM_LIMIT = 48 * 1024
+
+
+def check_smem(what, nbytes):
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {nbytes} bytes of shared memory per "
+                         f"block, beyond the {SMEM_LIMIT} it reserves")
 
 
 def fbstab_mpc_solve_plain(data, z0, l0, v0, options: Options):
@@ -48,9 +59,18 @@ def solve_opts(options: Options, struct=None):
         nonmonotone=int(o.nonmonotone_linesearch))
 
 
+def check_batch(B, data):
+    """Every array of `data` holds B instances."""
+    for name, a in data._asdict().items():
+        if a.shape[0] != B:
+            raise ValueError(f"data.{name} has {a.shape[0]} instances, the "
+                             f"iterates {B}")
+
+
 def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
-    """Lays the inputs out batch-last, allocates outputs and scratch, and
-    launches K2 from `lib`. Returns batch-first (Variable, CoreOut)."""
+    """Allocates outputs and scratch and launches K2 from `lib` on the
+    batch-first inputs (contiguous, as the kernel reads them). Returns
+    batch-first (Variable, CoreOut)."""
     N, nx, nu, nc = (data.A.shape[-3], data.A.shape[-1], data.B.shape[-1],
                      data.E.shape[-2])
     B = z0.shape[0]
@@ -62,29 +82,30 @@ def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
         if tuple(t.shape) != (B, n):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {(B, n)}")
-    ins = [to_batch_last(a) for a in (
+    check_batch(B, data)
+    check_smem("K2", lib.fb_solve_smem_bytes(N, nx, nu, nc))
+    ins = [a.contiguous() for a in (
         data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
         data.A, data.B, data.E, data.L, z0, l0, v0)]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    z = torch.empty(N1 * ns, B, **f32)
-    l = torch.empty(N1 * nx, B, **f32)
-    v = torch.empty(N1 * nc, B, **f32)
-    y = torch.empty(N1 * nc, B, **f32)
+    z = torch.empty(B, N1 * ns, **f32)
+    l = torch.empty(B, N1 * nx, **f32)
+    v = torch.empty(B, N1 * nc, **f32)
+    y = torch.empty(B, N1 * nc, **f32)
     eflag = torch.empty(B, **i32)
     res = torch.empty(B, **f32)
     newton = torch.empty(B, **i32)
     prox = torch.empty(B, **i32)
     res0 = torch.empty(B, **f32)
-    ws = torch.empty(lib.fb_solve_ws_floats(N, nx, nu, nc), B, **f32)
+    ws = torch.empty(B, lib.fb_solve_ws_floats(N, nx, nu, nc), **f32)
     outs = (z, l, v, y, eflag, res, newton, prox, res0, ws)
     err = lib.fb_mpc_solve(N, nx, nu, nc, B, solve_opts(options),
                            *[a.data_ptr() for a in ins],
                            *[a.data_ptr() for a in outs], stream)
     from fbstab_tpu_torch.ops._build import check
     check(err, "fbstab_mpc_solve")
-    x = Variable(z=z.t().contiguous(), l=l.t().contiguous(),
-                 v=v.t().contiguous(), y=y.t().contiguous())
+    x = Variable(z=z, l=l, v=v, y=y)
     core = CoreOut(eflag=eflag, residual=res, newton_iters=newton,
                    prox_iters=prox, initial_residual=res0, raw_residual=res,
                    refine_steps=torch.zeros_like(eflag))

@@ -17,32 +17,30 @@ it never falls back.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from fbstab_tpu_torch.core.variable import Variable, var_norm
-from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, to_batch_last
+from fbstab_tpu_torch.ops.mpc_solve_cuda import check_batch, check_smem
+from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
 from fbstab_tpu_torch.options import Options
 
 
 class SubfusedData(NamedTuple):
-    """The problem data of one subfused solve: batch-first, and for CUDA
-    float32 data also the twelve arrays laid out batch-last for K4."""
+    """The problem data of one subfused solve, batch-first; for CUDA
+    float32 data contiguous, the instance-major layout K4 reads."""
 
     data: object                  # MpcQPData, (B, ...)
-    bl: Optional[tuple]           # (q, r, c, x0, d, Q, R, S, A, B, E, L)
 
 
 def prep_subfused_data(data) -> SubfusedData:
     """The loop-invariant kernel layout, built once per solve outside the
-    outer loop (`prep_subfused_data` in the JAX package)."""
-    bl = None
+    outer loop (`prep_subfused_data` in the JAX package): a contiguous copy
+    of any array of CUDA float32 data that is not contiguous already."""
     if data.Q.is_cuda and data.Q.dtype == torch.float32:
-        bl = tuple(to_batch_last(a) for a in (
-            data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
-            data.A, data.B, data.E, data.L))
-    return SubfusedData(data=data, bl=bl)
+        data = type(data)(*(a.contiguous() for a in data))
+    return SubfusedData(data=data)
 
 
 def mpc_subproblem_plain(prep: SubfusedData, xbar: Variable, itol_prev,
@@ -75,8 +73,8 @@ def mpc_subproblem_plain(prep: SubfusedData, xbar: Variable, itol_prev,
 def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
                       dxn_prev, newton0, done, options: Options,
                       stream: int):
-    """Lays the iterate out batch-last, allocates outputs and scratch, and
-    launches K4 from `lib`. Returns batch-first results."""
+    """Allocates outputs and scratch and launches K4 from `lib` on the
+    batch-first data of `prep` and iterate. Returns batch-first results."""
     from fbstab_tpu_torch.models.mpc_qp import mpc_dims
     from fbstab_tpu_torch.ops._build import check
     from fbstab_tpu_torch.ops.mpc_solve_cuda import solve_opts
@@ -85,9 +83,6 @@ def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
     B = xbar.z.shape[0]
     N1, ns = N + 1, nx + nu
     dev = xbar.z.device
-    if prep.bl is None:
-        raise ValueError("K4 needs the batch-last layout of CUDA float32 "
-                         "data (prep_subfused_data)")
     _check_f32(dev, z=xbar.z, l=xbar.l, v=xbar.v, y=xbar.y,
                itol_prev=itol_prev, dxn_prev=dxn_prev, **data._asdict())
     for name, t, n in (("z", xbar.z, N1 * ns), ("l", xbar.l, N1 * nx),
@@ -100,22 +95,27 @@ def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
         if tuple(t.shape) != (B,) or t.device != dev:
             raise ValueError(f"{name}: expected ({B},) on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
+    check_batch(B, data)
+    check_smem("K4", lib.fb_subproblem_smem_bytes(N, nx, nu, nc))
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    ins = (*prep.bl, *(to_batch_last(a) for a in xbar),
-           itol_prev.contiguous(), dxn_prev.contiguous(),
-           newton0.to(**i32).contiguous(), done.to(**i32).contiguous())
-    z, l, v, y = (torch.empty(n, B, **f32)
+    ins = (*(a.contiguous() for a in (
+        data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
+        data.A, data.B, data.E, data.L)), *(a.contiguous() for a in xbar),
+        itol_prev.contiguous(), dxn_prev.contiguous(),
+        newton0.to(**i32).contiguous(), done.to(**i32).contiguous())
+    z, l, v, y = (torch.empty(B, n, **f32)
                   for n in (N1 * ns, N1 * nx, N1 * nc, N1 * nc))
     Eo, Ek, itol, dxn = (torch.empty(B, **f32) for _ in range(4))
     newton, lfail, success = (torch.empty(B, **i32) for _ in range(3))
-    ws = torch.empty(lib.fb_subproblem_ws_floats(N, nx, nu, nc), B, **f32)
+    ws = torch.empty(B, lib.fb_subproblem_ws_floats(N, nx, nu, nc),
+                     **f32)
     outs = (z, l, v, y, Eo, newton, lfail, Ek, success, itol, dxn, ws)
     err = lib.fb_mpc_subproblem(N, nx, nu, nc, B, solve_opts(options),
                                 *[a.data_ptr() for a in ins],
                                 *[a.data_ptr() for a in outs], stream)
     check(err, "mpc_subproblem")
-    xi = Variable(*(a.t().contiguous() for a in (z, l, v, y)))
+    xi = Variable(z, l, v, y)
     return xi, Eo, newton, lfail > 0, Ek, success > 0, itol, dxn
 
 

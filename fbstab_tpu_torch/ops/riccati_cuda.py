@@ -30,7 +30,8 @@ def riccati_newton_step_plain(data, v, y, vbar, rz, rl, rv, sigma, alpha):
 
 def to_batch_last(a: torch.Tensor) -> torch.Tensor:
     """(B, ...) -> contiguous (rows, B): element k of instance b at
-    k * B + b, the layout of every kernel array."""
+    k * B + b, the layout of K1's, K3's and K5's arrays (K2 and K4 read
+    the batch-first tensors as they are)."""
     return a.reshape(a.shape[0], -1).t().contiguous()
 
 

@@ -110,8 +110,9 @@ def mean_refine_steps(core) -> float:
 
 def lockstep_warp_iters(newton_iters, two_phase=None, width=WARP):
     """Newton iterations the card executes in lockstep: the sum over warps
-    of `width` lanes of the slowest lane's count (K2 runs one thread per
-    instance, so a warp waits for its slowest lane).
+    of `width` lanes of the slowest lane's count (a warp of K2 holds one
+    block of teams, an instance a team, and runs until its slowest
+    instance exits).
 
     two_phase=(k1, P): phase 1 runs each warp to min(its slowest lane,
     k1); the lanes beyond k1 are compacted in index order into phase-2
@@ -130,7 +131,7 @@ def lockstep_warp_iters(newton_iters, two_phase=None, width=WARP):
 
 
 def mpc_perf_model(B, N, nx, nu, nc, newton_iters, t_solve, refine_steps,
-                   two_phase=None):
+                   two_phase=None, width=WARP):
     """First-order model of a batched MPC solve on the card: operations per
     Newton iteration and per solve (bench.py's counts: per Newton iteration
     one Riccati factorization and back-solve and ~2.5 residual evaluations;
@@ -142,7 +143,8 @@ def mpc_perf_model(B, N, nx, nu, nc, newton_iters, t_solve, refine_steps,
 
     `refine_steps` is the EXECUTED count (mean_refine_steps), not
     Options.refine_steps: the maximum would overstate the refine term
-    several times over."""
+    several times over. `width` is the instances a warp holds
+    (lockstep_warp_iters)."""
     N1 = N + 1
     f_hess = 2 * N1 * nc * (nx * nx + nu * nu + nu * nx)
     f_factor = 2 * N1 * (
@@ -169,7 +171,7 @@ def mpc_perf_model(B, N, nx, nu, nc, newton_iters, t_solve, refine_steps,
         "sustained_gflops": round(flops_solve_mean * B / t / 1e9, 2),
         "newton_iters_mean": round(float(ni.mean()), 2),
         "executed_refine_steps": round(float(refine_steps), 2),
-        "lockstep_warp_iters": lockstep_warp_iters(ni, two_phase),
+        "lockstep_warp_iters": lockstep_warp_iters(ni, two_phase, width),
         "measured_s": round(t, 4),
         "bound_s": bound_ms / 1e3,
         "bound_by": bound_by,

@@ -5,7 +5,8 @@ double in place of float, behind the CUDA library's C interface. In float64
 the replayed fused solvers (K2, MPC; K3, dense) must take exactly the plain
 solvers' decisions on every lane: the same exit flag, Newton and proximal
 iteration counts, iterates within 1e-9; so must the host outer loop of the
-subfused tier on the replayed per-subproblem kernel (K4). The replayed
+subfused tier on the replayed per-subproblem kernel (K4). K2 and K4 are
+replayed on the team of one in their instance-major layout. The replayed
 Newton step (K1) and scan-level combine (K5) must match their plain
 versions within 1e-10. This pins the per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
@@ -14,6 +15,7 @@ The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
 float32: the replay is built with -ffp-contract=off, so the host compiler
 contracts nothing, and they must be exact."""
 
+import contextlib
 import ctypes
 import shutil
 import subprocess
@@ -61,13 +63,15 @@ def lib(tmp_path_factory):
     if cxx is None:
         pytest.skip("needs a host C++ compiler to build the replay")
     out = tmp_path_factory.mktemp("replay") / "libfbstab_replay64.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I", str(_build.SRC_DIR), "-o", str(out),
-                    str(HARNESS)], check=True, capture_output=True,
+    subprocess.run([cxx, "-std=c++20", "-pthread", "-O2", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I", str(_build.SRC_DIR), "-o",
+                    str(out), str(HARNESS)], check=True, capture_output=True,
                    timeout=120)
     lib = ctypes.CDLL(str(out))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for ws in (lib.fb_riccati_ws_floats, lib.fb_solve_ws_floats):
+    for ws in (lib.fb_riccati_ws_floats, lib.fb_solve_ws_floats,
+               lib.fb_solve_smem_bytes, lib.fb_subproblem_ws_floats,
+               lib.fb_subproblem_smem_bytes):
         ws.argtypes = [I] * 4
         ws.restype = ctypes.c_longlong
     lib.fb_riccati_step.argtypes = [I] * 5 + [D, D] + [P] * 17
@@ -75,40 +79,50 @@ def lib(tmp_path_factory):
     lib.fb_dense_ws_floats.argtypes = [I] * 3
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I] * 4 + [SolveOpts64] + [P] * 19
-    lib.fb_subproblem_ws_floats.argtypes = [I] * 4
-    lib.fb_subproblem_ws_floats.restype = ctypes.c_longlong
     lib.fb_mpc_subproblem.argtypes = [I] * 5 + [SolveOpts64] + [P] * 32
     lib.fb_combine_ws_floats.argtypes = [I]
     lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
+    lib.fb_replay_set_team.argtypes = [I]
+    lib.fb_replay_set_team.restype = None
     return lib
 
 
+@contextlib.contextmanager
+def on_team(lib, T):
+    """Replays K2 and K4 on a team of T host threads inside the block."""
+    lib.fb_replay_set_team(T)
+    try:
+        yield
+    finally:
+        lib.fb_replay_set_team(1)
+
+
 def _replay_solve(lib, data, options):
-    """The replayed K2 from zero initial guesses: (z, v, eflag, newton,
-    prox, res), batch-first."""
+    """The replayed K2 from zero initial guesses on the instance-major
+    (batch-first) arrays: (z, v, eflag, newton, prox, res)."""
     N, nx, nu, nc = tm.mpc_dims(data)
     B, N1 = data.x0.shape[0], N + 1
     f64 = dict(dtype=torch.float64)
     z0 = torch.zeros(B, N1 * (nx + nu), **f64)
     l0 = torch.zeros(B, N1 * nx, **f64)
     v0 = torch.zeros(B, N1 * nc, **f64)
-    ins = [to_batch_last(a) for a in (
+    ins = [a.contiguous() for a in (
         data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
         data.A, data.B, data.E, data.L, z0, l0, v0)]
-    z, l0b, v, y = (torch.empty(a.shape[1], B, **f64)
+    z, l0b, v, y = (torch.empty(B, a.shape[1], **f64)
                     for a in (z0, l0, v0, v0))
     eflag, newton, prox = (torch.empty(B, dtype=torch.int32)
                            for _ in range(3))
     res, res0 = torch.empty(B, **f64), torch.empty(B, **f64)
-    ws = torch.empty(lib.fb_solve_ws_floats(N, nx, nu, nc), B, **f64)
+    ws = torch.empty(B, lib.fb_solve_ws_floats(N, nx, nu, nc), **f64)
     outs = (z, l0b, v, y, eflag, res, newton, prox, res0, ws)
     assert lib.fb_mpc_solve(N, nx, nu, nc, B,
                             solve_opts(options, SolveOpts64),
                             *[a.data_ptr() for a in ins],
                             *[a.data_ptr() for a in outs]) == 0
-    return z.t(), v.t(), eflag, newton, prox, res
+    return z, v, eflag, newton, prox, res
 
 
 def _headline_equilibrated():
@@ -140,7 +154,25 @@ SOLVE_CASES = {
 @pytest.mark.parametrize("case", list(SOLVE_CASES))
 def test_replayed_solver_takes_the_plain_solvers_decisions(lib, case):
     make_data, make_options = SOLVE_CASES[case]
-    data, opts = make_data(), make_options()
+    _check_replayed_solver(lib, make_data(), make_options())
+
+
+@pytest.mark.parametrize("case,T", [("mixed_abs_tol_1e-8", 8),
+                                    ("mixed_single_precision", 4),
+                                    ("servo_certificate", 8),
+                                    ("spacecraft", 32)])
+def test_replayed_solver_on_a_team_takes_the_plain_solvers_decisions(
+        lib, case, T):
+    """K2's device code on a team of T host threads: the split of every
+    pass over the team, its syncs and its reductions (summed in another
+    order than the team of one's, so float64 rounding alone separates the
+    two) still give the plain solver's decisions on every lane."""
+    make_data, make_options = SOLVE_CASES[case]
+    with on_team(lib, T):
+        _check_replayed_solver(lib, make_data(), make_options())
+
+
+def _check_replayed_solver(lib, data, opts):
     z, v, eflag, newton, prox, res = _replay_solve(lib, data, opts)
     B = data.x0.shape[0]
     N, nx, nu, nc = tm.mpc_dims(data)
@@ -275,31 +307,31 @@ def test_replayed_dense_solver_takes_the_plain_solvers_decisions(lib, case):
 
 
 def _replayed_subproblem(lib):
-    """One outer iteration on the replayed K4, with the signature of
-    ops.mpc_subproblem_cuda.mpc_subproblem_fused."""
+    """One outer iteration on the replayed K4 (instance-major arrays),
+    with the signature of ops.mpc_subproblem_cuda.mpc_subproblem_fused."""
     def subproblem(prep, xbar, itol_prev, dxn_prev, newton0, done, options):
         data = prep.data
         N, nx, nu, nc = tm.mpc_dims(data)
         B = xbar.z.shape[0]
         f64 = dict(dtype=torch.float64)
         i32 = dict(dtype=torch.int32)
-        ins = [to_batch_last(a) for a in (
+        ins = [a.contiguous() for a in (
             data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
             data.A, data.B, data.E, data.L, *xbar)]
         ins += [itol_prev.contiguous(), dxn_prev.contiguous(),
                 newton0.to(**i32).contiguous(), done.to(**i32).contiguous()]
-        xi = [torch.empty(a.shape[1], B, **f64) for a in xbar]
+        xi = [torch.empty(B, a.shape[1], **f64) for a in xbar]
         Eo, Ek, itol, dxn = (torch.empty(B, **f64) for _ in range(4))
         newton, lfail, success = (torch.empty(B, **i32) for _ in range(3))
-        ws = torch.empty(lib.fb_subproblem_ws_floats(N, nx, nu, nc), B,
+        ws = torch.empty(B, lib.fb_subproblem_ws_floats(N, nx, nu, nc),
                          **f64)
         outs = (*xi, Eo, newton, lfail, Ek, success, itol, dxn, ws)
         assert lib.fb_mpc_subproblem(N, nx, nu, nc, B,
                                      solve_opts(options, SolveOpts64),
                                      *[a.data_ptr() for a in ins],
                                      *[a.data_ptr() for a in outs]) == 0
-        return (tm.Variable(*(a.t() for a in xi)), Eo, newton, lfail > 0, Ek,
-                success > 0, itol, dxn)
+        return (tm.Variable(*xi), Eo, newton, lfail > 0, Ek, success > 0,
+                itol, dxn)
     return subproblem
 
 
@@ -319,7 +351,21 @@ SUBPROBLEM_CASES = {
 def test_subfused_loop_on_replayed_k4_takes_the_plain_solvers_decisions(
         lib, case):
     make_data, make_options = SUBPROBLEM_CASES[case]
-    data, opts = make_data(), make_options()
+    _check_subfused_on_replay(lib, make_data(), make_options())
+
+
+@pytest.mark.parametrize("case,T", [("mixed_single_precision", 4),
+                                    ("copoly_n4_abs_tol_1e-8", 32)])
+def test_subfused_loop_on_replayed_k4_team_takes_the_plain_solvers_decisions(
+        lib, case, T):
+    """K4's device code on a team of T host threads (K4's own 32 at the
+    copolymerization reactor's stage dims) under the host outer loop."""
+    make_data, make_options = SUBPROBLEM_CASES[case]
+    with on_team(lib, T):
+        _check_subfused_on_replay(lib, make_data(), make_options())
+
+
+def _check_subfused_on_replay(lib, data, opts):
     N, nx, nu, nc = tm.mpc_dims(data)
     B = data.x0.shape[0]
     zeros = lambda n: torch.zeros(B, n, dtype=torch.float64)
@@ -340,6 +386,35 @@ def test_subfused_loop_on_replayed_k4_takes_the_plain_solvers_decisions(
     np.testing.assert_allclose(
         cs.residual.numpy(), cp.residual.numpy(), rtol=0,
         atol=1e-9 * (1 + cp.initial_residual.max().item()))
+
+
+@pytest.mark.parametrize("dims", [(30, 8, 3, 6), (40, 8, 3, 12),
+                                  (80, 18, 5, 10), (6, 2, 1, 6),
+                                  (12, 6, 3, 12)])
+def test_layout_helpers_match_the_device_code(lib, dims):
+    """The layout functions that K2's and K4's wrappers size their scratch
+    and check their shared memory with (csrc/mpc_solve.cuh, here compiled
+    from the same headers; the headline, the two caps, the double
+    integrator, the servo): both kernels keep K1's Riccati factors in
+    device memory and K1's stage block in shared memory, one per team (four
+    teams to a block of K2, one to K4's), K2 five primal-dual points beside
+    the factors and K4 three; and a block of the kernel that the tier gate
+    gives these dims fits the shared memory the kernel reserves."""
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import SMEM_LIMIT
+    N, nx, nu, nc = dims
+    point = (N + 1) * (2 * nx + nu + 2 * nc)
+    k2_smem, k4_smem = (lib.fb_solve_smem_bytes(*dims),
+                        lib.fb_subproblem_smem_bytes(*dims))
+    stage = k4_smem // 4
+    factors = lib.fb_riccati_ws_floats(*dims) - stage
+    assert k4_smem == 4 * stage and k2_smem == 4 * k4_smem
+    assert lib.fb_solve_ws_floats(*dims) == factors + 5 * point
+    assert lib.fb_subproblem_ws_floats(*dims) == factors + 3 * point
+    cap = tm.SOLVE_DIMS_CAP if nx <= tm.SOLVE_DIMS_CAP["nx"] else (
+        tm.SUBPROBLEM_DIMS_CAP)
+    assert all(d <= cap[k] for k, d in zip(("N", "nx", "nu", "nc"), dims))
+    smem = k2_smem if cap is tm.SOLVE_DIMS_CAP else k4_smem
+    assert smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("M,n,B", [(3, 4, 5), (2, 18, 3)])

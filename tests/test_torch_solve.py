@@ -111,18 +111,89 @@ def test_facade_solves_one_instance_like_the_batch():
         tm.FBstabMpc(5, 2, 1, 6, device="cpu").solve(td)
 
 
+class RecordingLib:
+    """Stands in for the kernel library: records each launch's arguments
+    and each size query, answers the queries with `ws_floats` and
+    `smem_bytes`, and reports success."""
+
+    def __init__(self, ws_floats=11, smem_bytes=64):
+        self.calls, self.sizes = [], []
+        self.ws_floats, self.smem_bytes = ws_floats, smem_bytes
+
+    def _ws(self, *dims):
+        self.sizes.append(("ws", dims))
+        return self.ws_floats
+
+    def _smem(self, *dims):
+        self.sizes.append(("smem", dims))
+        return self.smem_bytes
+
+    fb_solve_ws_floats = fb_subproblem_ws_floats = _ws
+    fb_solve_smem_bytes = fb_subproblem_smem_bytes = _smem
+
+    def fb_mpc_solve(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def fb_mpc_subproblem(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
+    """K2 reads the data and the initial guess in place (instance-major is
+    torch's batch-first layout) and writes (B, n) outputs that become the
+    result: no transposed copy on either side."""
+    arrays = headline_arrays(5, N=4)
+    data = torch_data(arrays, torch.float32)
+    data = type(data)(*(a.contiguous() for a in data))
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    guess = [torch.zeros(5, n) for n in (nz, nl, nv)]
+    lib = RecordingLib()
+    x, core = mpc_solve_cuda.launch_mpc_solve(
+        lib, data, *guess, Options.single_precision(), 7)
+    (args,) = lib.calls
+    assert args[:5] == (N, nx, nu, nc, 5) and args[-1] == 7
+    ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
+           data.A, data.B, data.E, data.L, *guess)
+    assert list(args[6:21]) == [a.data_ptr() for a in ins]
+    assert list(args[21:25]) == [a.data_ptr() for a in x]
+    assert [tuple(a.shape) for a in x] == [(5, nz), (5, nl), (5, nv),
+                                           (5, nv)]
+    assert args[25] == core.eflag.data_ptr()
+    assert not hasattr(mpc_solve_cuda, "to_batch_last")
+    # The scratch and the shared memory are sized by the library's own
+    # layout functions.
+    assert sorted(lib.sizes) == [("smem", (N, nx, nu, nc)),
+                                 ("ws", (N, nx, nu, nc))]
+    with pytest.raises(ValueError, match="instances"):
+        mpc_solve_cuda.launch_mpc_solve(
+            lib, data._replace(q=data.q[:4]), *guess,
+            Options.single_precision(), 7)
+    # A stage block too large for the shared memory the kernel reserves.
+    big = RecordingLib(smem_bytes=mpc_solve_cuda.SMEM_LIMIT + 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        mpc_solve_cuda.launch_mpc_solve(big, data, *guess,
+                                        Options.single_precision(), 7)
+    assert big.calls == []
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["headline_equilibrated", "mixed"])
+@pytest.mark.parametrize("case", ["headline_equilibrated", "mixed",
+                                  "headline_equilibrated_ragged"])
 def test_cuda_kernel_matches_plain_version(case):
     """K2 on the card against its plain version in float32, on the
-    equilibrated headline problem and on the mixed feasible / infeasible
+    equilibrated headline problem (B = 128, and B = 37, which leaves the
+    last block of teams part empty) and on the mixed feasible / infeasible
     batch: equal exit flags, Newton counts within +-2 on at least 90% of
     lanes (float32 knife edges of the stall guard, see chip_smoke.py; the
     per-lane counts are pinned in float64 by test_torch_device_code.py), z
     within 1e-3 (1 + |z|) where both succeed."""
     require_cuda()
     dev = torch.device("cuda", 0)
-    arrays = headline_arrays(128) if case != "mixed" else mixed_batch()
+    arrays = {"headline_equilibrated": lambda: headline_arrays(128),
+              "headline_equilibrated_ragged": lambda: headline_arrays(37),
+              "mixed": mixed_batch}[case]()
     data = torch_data(arrays, torch.float32, dev)
     if case != "mixed":
         data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))

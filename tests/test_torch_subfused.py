@@ -102,7 +102,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     arrays = mixed_batch()
     data = torch_data(arrays, torch.float64)
     prep = k4.prep_subfused_data(data)
-    assert prep.bl is None
+    assert prep.data is data   # nothing to lay out for the plain version
     z, l, v = _zeros(arrays)
     xbar = tm.Variable(z=z, l=l, v=v, y=tm._b_vec(data) - tm._gemvA(data, z))
     B = z.shape[0]
@@ -121,6 +121,41 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert not lfail[-1] and dxn[-1].item() == 10.0
     torch.testing.assert_close(xi.z[-1], xbar.z[-1], rtol=0, atol=0)
     assert (newton[:-1] > 0).any()
+
+
+def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
+    """K4 reads the data and the proximal center in place and writes the
+    (B, n) iterate that becomes xi: no transposed copy on either side."""
+    from test_torch_solve import RecordingLib
+
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import SMEM_LIMIT
+
+    arrays = copoly_arrays(3, 4)
+    data = torch_data(arrays, torch.float32)
+    data = type(data)(*(a.contiguous() for a in data))
+    z, l, v = _zeros(arrays, torch.float32)
+    xbar = tm.Variable(z=z, l=l, v=v, y=tm._b_vec(data) - tm._gemvA(data, z))
+    row = torch.ones(3)
+    state = (row, 10 * row, torch.zeros(3, dtype=torch.int32),
+             torch.zeros(3, dtype=torch.bool), Options.single_precision(), 7)
+    lib = RecordingLib()
+    out = k4.launch_subproblem(lib, k4.SubfusedData(data), xbar, *state)
+    (args,) = lib.calls
+    ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
+           data.A, data.B, data.E, data.L, *xbar)
+    assert list(args[6:22]) == [a.data_ptr() for a in ins]
+    assert list(args[26:30]) == [a.data_ptr() for a in out[0]]
+    assert tuple(out[0].z.shape) == tuple(z.shape) and args[-1] == 7
+    assert not hasattr(k4, "to_batch_last")
+    # The scratch and the shared memory are sized by the library's own
+    # layout functions, and a stage block beyond the shared memory the
+    # kernel reserves raises before the launch.
+    dims = tm.mpc_dims(data)
+    assert sorted(lib.sizes) == [("smem", dims), ("ws", dims)]
+    big = RecordingLib(smem_bytes=SMEM_LIMIT + 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.launch_subproblem(big, k4.SubfusedData(data), xbar, *state)
+    assert big.calls == []
 
 
 @pytest.mark.cuda

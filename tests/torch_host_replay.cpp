@@ -1,11 +1,21 @@
 // The device code of the PyTorch port's CUDA kernels
 // (fbstab_tpu_torch/csrc/*.cuh) compiled as host C++ in float64 (the
 // double-float transforms of P3 in float32): one loop
-// iteration per instance, behind the C interface of the CUDA library with
-// double in place of float. tests/test_torch_device_code.py builds it with
-// the host compiler and holds it lane for lane against the plain float64
-// versions of the kernels.
+// iteration per instance, each on the team of one, behind the C interface
+// of the CUDA library with double in place of float, in the kernels'
+// layouts (K1, K3, K5 batch-last; K2, K4 instance-major, with each
+// instance's stage block in a buffer of its own where the kernels keep it
+// in shared memory). K2 and K4 also run on a team of T host threads
+// (fb_replay_set_team): the kernels' split of the work, with a barrier for
+// the tile's sync and the same xor-butterfly reductions.
+// tests/test_torch_device_code.py builds it with the host compiler and
+// holds it lane for lane against the plain float64 versions of the
+// kernels.
 #include <math.h>
+
+#include <barrier>
+#include <thread>
+#include <vector>
 
 // The double-float transforms of P3 stay in float32: their exactness is
 // what is replayed. The host compiler sees doublefloat.cuh's plain
@@ -41,7 +51,69 @@ extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
 #include "dense_solve.cuh"
 #include "mpc_solve.cuh"
 
+// A team of T host threads standing in for Team<T> (fbstab_common.cuh).
+// Every exchange of values goes through a slot per thread between two
+// barriers.
+template <int T>
+struct HostTeam {
+  static constexpr bool kStages = true;
+  struct Shared {
+    std::barrier<> bar{T};
+    float slot[T];
+  };
+  Shared* sh;
+  int r;
+  static int size() { return T; }
+  int rank() const { return r; }
+  void sync() const { sh->bar.arrive_and_wait(); }
+  float exchange(float x, int src) const {
+    sync();
+    sh->slot[r] = x;
+    sync();
+    return sh->slot[src];
+  }
+  float sum(float x) const {
+    for (int o = T / 2; o > 0; o >>= 1) x += exchange(x, r ^ o);
+    return x;
+  }
+  float max(float x) const {
+    for (int o = T / 2; o > 0; o >>= 1) x = fmax(x, exchange(x, r ^ o));
+    return x;
+  }
+  bool any(bool x) const { return sum(x ? 1.0 : 0.0) > 0.0; }
+  float bcast(float x, int src) const { return exchange(x, src); }
+};
+
+// Runs body(team) on each of T threads of one team.
+template <int T, class F>
+void run_team(const F& body) {
+  typename HostTeam<T>::Shared sh;
+  std::vector<std::thread> threads;
+  for (int r = 1; r < T; ++r)
+    threads.emplace_back([&sh, &body, r] { body(HostTeam<T>{&sh, r}); });
+  body(HostTeam<T>{&sh, 0});
+  for (auto& t : threads) t.join();
+}
+
+// Runs body(team) for one instance on the team of g_team threads.
+static int g_team = 1;
+
+template <class F>
+void on_team(const F& body) {
+  switch (g_team) {
+    case 1: body(Solo{}); break;
+    case 2: run_team<2>(body); break;
+    case 4: run_team<4>(body); break;
+    case 8: run_team<8>(body); break;
+    case 16: run_team<16>(body); break;
+    default: run_team<32>(body); break;
+  }
+}
+
 extern "C" {
+
+// The team size K2 and K4 replay on: 1 (the default), 2, 4, ..., 32.
+void fb_replay_set_team(int T) { g_team = T; }
 
 long long fb_riccati_ws_floats(int N, int nx, int nu, int nc) {
   return ric_layout(MpcDims{N, nx, nu, nc}).total;
@@ -64,17 +136,23 @@ int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
     P.B = lane_of(Bm, B, b);
     P.E = lane_of(E, B, b);
     P.L = lane_of(L, B, b);
-    riccati_factor_solve(D, sigma[b], alpha, om_alpha, P, lane_of(v, B, b),
-                         lane_of(y, B, b), lane_of(vbar, B, b),
-                         lane_of(rz, B, b), lane_of(rl, B, b),
-                         lane_of(rv, B, b), lane_of(dz, B, b),
-                         lane_of(dl, B, b), lane_of(ws, B, b));
+    const Lane w = lane_of(ws, B, b);
+    riccati_factor_solve(Solo{}, D, sigma[b], alpha, om_alpha, P,
+                         lane_of(v, B, b), lane_of(y, B, b),
+                         lane_of(vbar, B, b), lane_of(rz, B, b),
+                         lane_of(rl, B, b), lane_of(rv, B, b),
+                         lane_of(dz, B, b), lane_of(dl, B, b), w,
+                         w.at(ric_layout(D).stage));
   }
   return 0;
 }
 
 long long fb_solve_ws_floats(int N, int nx, int nu, int nc) {
   return solve_layout(MpcDims{N, nx, nu, nc}).total;
+}
+
+long long fb_solve_smem_bytes(int N, int nx, int nu, int nc) {
+  return solve_smem_bytes(MpcDims{N, nx, nu, nc});
 }
 
 int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
@@ -86,30 +164,25 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
                  float* l, float* v, float* y, int* eflag, float* res,
                  int* newton, int* prox, float* res0, float* ws) {
   const MpcDims D{N, nx, nu, nc};
+  const long long N1 = N + 1;
+  const SolveLayout W = solve_layout(D);
+  std::vector<float> stage(ric_layout(D).stage_floats);
   for (int b = 0; b < B; ++b) {
-    MpcProb P;
-    P.Q = lane_of(Q, B, b);
-    P.R = lane_of(R, B, b);
-    P.S = lane_of(S, B, b);
-    P.q = lane_of(q, B, b);
-    P.r = lane_of(r, B, b);
-    P.A = lane_of(A, B, b);
-    P.B = lane_of(Bm, B, b);
-    P.c = lane_of(c, B, b);
-    P.E = lane_of(E, B, b);
-    P.L = lane_of(L, B, b);
-    P.d = lane_of(d, B, b);
-    P.x0 = lane_of(x0, B, b);
+    const MpcProb P = mpc_prob_im(D, q, r, c, x0, d, Q, R, S, A, Bm, E, L, b);
     SolveOut out;
-    out.x = Vars{lane_of(z, B, b), lane_of(l, B, b), lane_of(v, B, b),
-                 lane_of(y, B, b)};
+    out.x = mpc_vars_im(D, z, l, v, y, b);
     out.eflag = eflag + b;
     out.res = res + b;
     out.newton = newton + b;
     out.prox = prox + b;
     out.res0 = res0 + b;
-    fbstab_mpc_solve_lane(D, o, P, lane_of(z0, B, b), lane_of(l0, B, b),
-                          lane_of(v0, B, b), out, lane_of(ws, B, b));
+    const Lane w = lane_im(ws, W.total, b);
+    on_team([&](const auto& tm) {
+      fbstab_mpc_solve_lane(tm, D, o, P, lane_im(z0, N1 * (nx + nu), b),
+                            lane_im(l0, N1 * nx, b),
+                            lane_im(v0, N1 * nc, b), out, w.at(W.step),
+                            Lane{stage.data(), 1}, w.at(W.xk));
+    });
   }
   return 0;
 }
@@ -151,6 +224,10 @@ long long fb_subproblem_ws_floats(int N, int nx, int nu, int nc) {
   return subproblem_ws_floats(MpcDims{N, nx, nu, nc});
 }
 
+long long fb_subproblem_smem_bytes(int N, int nx, int nu, int nc) {
+  return subproblem_smem_bytes(MpcDims{N, nx, nu, nc});
+}
+
 int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
                       const float* q, const float* r, const float* c,
                       const float* x0, const float* d, const float* Q,
@@ -164,27 +241,18 @@ int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
                       float* Ek, int* success, float* itol, float* dxn,
                       float* ws) {
   const MpcDims D{N, nx, nu, nc};
+  std::vector<float> stage(ric_layout(D).stage_floats);
   for (int b = 0; b < B; ++b) {
-    MpcProb P;
-    P.Q = lane_of(Q, B, b);
-    P.R = lane_of(R, B, b);
-    P.S = lane_of(S, B, b);
-    P.q = lane_of(q, B, b);
-    P.r = lane_of(r, B, b);
-    P.A = lane_of(A, B, b);
-    P.B = lane_of(Bm, B, b);
-    P.c = lane_of(c, B, b);
-    P.E = lane_of(E, B, b);
-    P.L = lane_of(L, B, b);
-    P.d = lane_of(d, B, b);
-    P.x0 = lane_of(x0, B, b);
-    const Vars xk{lane_of(zk, B, b), lane_of(lk, B, b), lane_of(vk, B, b),
-                  lane_of(yk, B, b)};
-    const Vars xi{lane_of(z, B, b), lane_of(l, B, b), lane_of(v, B, b),
-                  lane_of(y, B, b)};
-    const OuterStep s = fbstab_mpc_subproblem_lane(
-        D, o, P, xk, xi, itol_prev[b], dxn_prev[b], newton0[b], done[b] != 0,
-        lane_of(ws, B, b));
+    const MpcProb P = mpc_prob_im(D, q, r, c, x0, d, Q, R, S, A, Bm, E, L, b);
+    OuterStep s;
+    on_team([&](const auto& tm) {
+      const OuterStep t = fbstab_mpc_subproblem_lane(
+          tm, D, o, P, mpc_vars_im(D, zk, lk, vk, yk, b),
+          mpc_vars_im(D, z, l, v, y, b), itol_prev[b], dxn_prev[b],
+          newton0[b], done[b] != 0, lane_im(ws, subproblem_ws_floats(D), b),
+          Lane{stage.data(), 1});
+      if (tm.rank() == 0) s = t;
+    });
     Eo[b] = s.Eo;
     newton[b] = s.newton;
     lfail[b] = s.lfail ? 1 : 0;
