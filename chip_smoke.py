@@ -10,7 +10,11 @@ fatal on failure:
   2. build: nvcc compiles fbstab_tpu_torch/csrc/*.cu, one process per
      source (time, registers);
   3. K1 (Riccati Newton step) against its plain version at the headline
-     shape, on iterates from a few plain Newton steps;
+     (B = 8192), the copolymerization reactor (B = 2048), a tier-3 shape
+     at the JAX package's gate corner (N = 10, nx = 32, nu = 24, nc = 48,
+     B = 64) and a shape beyond what a block's shared memory holds
+     (N = 2, nx = 112, nu = 8, nc = 16, B = 64), on iterates from a few
+     plain Newton steps, with its design line at each (as K2's below);
   4. K2 (fused MPC solver) against its plain version on the equilibrated
      headline problem (B = 1024), with its design line: threads per team,
      teams per block, registers, spill bytes, dynamic shared bytes,
@@ -50,22 +54,24 @@ fatal on failure:
  15. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
      at B = 2048, as `bench.py copoly` runs it, through tier 2;
  16. the long-horizon phase: the single-instance solve_mpc_qp on the double
-     integrator in float32 with riccati="scan" and "assoc" at N = 120, 240
-     and 480 (`bench.py longhorizon`'s N), best of 5 each;
+     integrator in float32 with riccati="scan" and "assoc", in turns, at
+     N = 120, 240 and 480 (`bench.py longhorizon`'s N), best of 5 each;
  17. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
      the copoly batch at B = 256.
 
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: one thread per instance, or a team of T threads per instance on
-instance-major data), the last line {"ok": true, "device": {...}}.
+instance-major data; K1's row also holds each K1 shape's numbers under
+`shapes`), the last line {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
 
 With --k3-envelope it runs phases 1 and 2, then holds K3 against its plain
 version at B = 256 at each ENVELOPE shape within the JAX package's dense
 gate, none fatal: the survey DENSE_DIMS_CAP is chosen from. With
 --assoc-crossover it runs phases 1 and 2, then the long-horizon phase at
-N = 240 ... 480 in steps of 60: where the single-instance assoc solve
-overtakes the scan on the card (ASSOC_MIN_HORIZON_CUDA).
+N = ASSOC_CROSSOVER_NS, best of 7, and prints the smallest N from which
+the single-instance assoc solve is the faster at every larger N: the
+value of ASSOC_MIN_HORIZON_CUDA.
 """
 
 from __future__ import annotations
@@ -84,8 +90,8 @@ from fbstab_tpu_torch.perf_model import (
     stage_matvec_flops)
 from fbstab_tpu_torch.workloads import (
     COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
-    cuda_ms, dense_f64_residual, dense_zeros, mpc_f64_residual, timed,
-    zeros_guess)
+    cuda_ms, dense_f64_residual, dense_zeros, mpc_f64_residual,
+    newton_step_args, timed, zeros_guess)
 
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
 # Fused solver (K2, K3) against its plain version, both in float32.
@@ -113,6 +119,9 @@ K5_TOL = 1e-3
 # version; DENSE_DIMS_CAP is the largest box whose corner passes.
 ENVELOPE = ((32, 64, 0), (32, 64, 16), (32, 64, 32), (48, 96, 0),
             (48, 96, 24), (64, 128, 0), (64, 128, 32), (64, 128, 64))
+# --assoc-crossover: the horizons of the double integrator at which the
+# single-instance scan and assoc solves are timed.
+ASSOC_CROSSOVER_NS = (240, 360, 480, 600, 720, 960)
 
 
 def fail(msg: str) -> None:
@@ -151,7 +160,7 @@ def phase_build():
 
 
 def design_line(name, source, info_fn, dims):
-    """Prints a fused MPC kernel's launch shape at `dims` (its C info
+    """Prints an MPC kernel's launch shape at `dims` (its C info
     function) and its ptxas lines; returns the row's `design`."""
     from fbstab_tpu_torch.ops import _build
 
@@ -163,53 +172,76 @@ def design_line(name, source, info_fn, dims):
           f"bytes per thread; {info['smem_bytes']} bytes of dynamic shared "
           f"memory per block; {info['blocks_per_sm']} resident blocks per "
           f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source)))
-    return f"team of {info['team']} per instance, instance-major"
+    return (f"team of {info['team']} per instance, instance-major"
+            + ("" if info["smem_bytes"] else ", stage block in device memory"))
 
 
-def phase_k1(B, device):
-    from fbstab_tpu_torch.core.residuals import inner_residual
-    from fbstab_tpu_torch.core.variable import Variable, var_axpy
-    from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, _b_vec, _gemvA
+# K1's shapes on the card: the headline (phase 3's timed shape, K1's
+# launches on the one-shot, adaptive and warmstart paths), the
+# copolymerization reactor at the copoly path's batch (its refinement's
+# K1), a tier-3 shape beyond K2's and K4's caps at the JAX package's gate
+# corner, whose stage block (49.9 KB) needs more shared memory than a
+# block gets by default, each held to K1_TOL; and a shape whose stage
+# block no block can hold (nx = 112), where the team works in place. At
+# nx = 112 float32 rounding alone can move the plain version ~7e-4 from
+# its float64 run (tests/test_torch_riccati.py's inputs), so there K1 is
+# held to K1_TOL or three times that distance, whichever is larger
+# (rounding=True).
+K1_SHAPES = (("headline", 8192, HEADLINE, False),
+             ("copoly", 2048, COPOLY, False),
+             ("gate corner", 64, dict(N=10, nx=32, nu=24, nc=48), False),
+             ("in place", 64, dict(N=2, nx=112, nu=8, nc=16), True))
+
+
+def phase_k1(device):
+    """K1 against its plain version at each K1_SHAPES shape, on the
+    equilibrated batch at the iterate of a few plain Newton steps, with
+    the float64 plain step on the same inputs as the yardstick of float32
+    rounding, its times, bound and design line there."""
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops.riccati_cuda import (
         riccati_newton_step_batched as k1, riccati_newton_step_plain as p1)
     from fbstab_tpu_torch.options import Options
 
-    opts = Options.single_precision()
-    data = build_batch(B, **HEADLINE, device=device)
-    data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
-    z0, l0, v0 = zeros_guess(data)
-    b = _b_vec(data)
-    x = Variable(z=z0, l=l0, v=v0, y=b - _gemvA(data, z0))
-    sigma, alpha = opts.sigma0, opts.alpha
-    for _ in range(3):      # a few plain proximal Newton steps
-        r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
-        dz, dl, dv, dy = p1(data, x.v, x.y, x.v, -r.z, -r.l, -r.v, sigma,
-                            alpha)
-        x = var_axpy(1.0, Variable(dz, dl, dv, dy), x, b)
-        x = x._replace(v=torch.clamp(x.v, min=0.0))
-    r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
-    args = (data, x.v, x.y, x.v, -r.z, -r.l, -r.v, sigma, alpha)
-    kz, kl, _, _ = k1(*args)
-    pz, pl, _, _ = p1(*args)
-    rel = lambda k, p: ((k - p).abs().amax(1) / (1 + p.abs().amax(1)))
-    err = torch.maximum(rel(kz, pz), rel(kl, pl))
-    max_abs = max((kz - pz).abs().max().item(), (kl - pl).abs().max().item())
-    ms = cuda_ms(lambda: k1(*args), 5)
-    plain_ms = cuda_ms(lambda: p1(*args), 3)
-    d = data
-    bound_ms, bound_by = bound(
-        B * riccati_flops(**HEADLINE),
-        nbytes(d.Q, d.R, d.S, d.A, d.B, d.E, d.L, x.v, x.y, x.v, r.z, r.l,
-               r.v, kz, kl))
-    print(f"K1: B={B} max rel err {err.max().item():.3e} (tol {K1_TOL}) "
-          f"max abs err {max_abs:.3e} | kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not bool(torch.isfinite(err).all()) or err.max().item() > K1_TOL:
-        fail("K1 disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    rows = {}
+    rel = lambda k, p: ((k.double() - p).abs().amax(1)
+                        / (1 + p.abs().amax(1))).max().item()
+    for tag, B, dims, rounding in K1_SHAPES:
+        data = (build_copoly(B, device) if dims is COPOLY
+                else build_batch(B, **dims, device=device))
+        data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+        args = newton_step_args(data, Options.single_precision())
+        kz, kl, _, _ = k1(*args)
+        pz, pl, _, _ = p1(*args)
+        wz, wl, _, _ = p1(type(data)(*(a.double() for a in data)),
+                          *(a.double() for a in args[1:7]), *args[7:])
+        err = max(rel(kz, pz), rel(kl, pl))
+        p64 = max(rel(pz, wz), rel(pl, wl))
+        tol = max(K1_TOL, 3 * p64) if rounding else K1_TOL
+        max_abs = max((kz - pz).abs().max().item(),
+                      (kl - pl).abs().max().item())
+        ms = cuda_ms(lambda: k1(*args), 5)
+        plain_ms = cuda_ms(lambda: p1(*args), 3)
+        d = data
+        bound_ms, bound_by = bound(
+            B * riccati_flops(**dims),
+            nbytes(d.Q, d.R, d.S, d.A, d.B, d.E, d.L, *args[1:7], kz, kl))
+        print(f"K1: {tag} B={B} N={dims['N']} nx={dims['nx']} "
+              f"nu={dims['nu']} nc={dims['nc']} max rel err {err:.3e} "
+              f"(tol {tol:.3e}); float32 plain vs float64 plain {p64:.3e}; "
+              f"max abs err "
+              f"{max_abs:.3e} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        design = design_line("K1", "riccati.cu", "fb_riccati_info",
+                             tuple(dims.values()))
+        if not (np.isfinite(err) and err <= tol):
+            fail(f"K1 disagrees with its plain version ({tag})")
+        rows[f"{tag} B={B}"] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, design=design)
+    head = dict(rows[f"headline B={K1_SHAPES[0][1]}"])
+    return dict(head, library_ms=None, shapes=rows)
 
 
 def compare_solver(name, kernel, plain, data, guess, opts, tag, reps=(2, 1),
@@ -575,35 +607,19 @@ def phase_k5(B, device):
     one Newton step at the copolymerization reactor's dims, on iterates
     from a few plain proximal Newton steps. The float64 plain version on the
     same inputs shows how far float32 rounding alone moves the plain one."""
-    from fbstab_tpu_torch.core.residuals import inner_residual
-    from fbstab_tpu_torch.core.variable import Variable, var_axpy
-    from fbstab_tpu_torch.models.mpc_qp import (
-        MPC_OPS, _b_vec, _gemvA, assoc_step_inputs)
+    from fbstab_tpu_torch.models.mpc_qp import assoc_step_inputs
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops.assoc_combine_cuda import (
         SpanElement, combine_bl, combine_bl_plain)
     from fbstab_tpu_torch.ops.assoc_riccati import (
         stage_elements_bl, suffix_values)
-    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_plain
     from fbstab_tpu_torch.options import Options
 
-    opts = Options.single_precision()
     data = build_copoly(B, device)
     data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
-    z0, l0, v0 = zeros_guess(data)
-    b = _b_vec(data)
-    x = Variable(z=z0, l=l0, v=v0, y=b - _gemvA(data, z0))
-    sigma, alpha = opts.sigma0, opts.alpha
-    for _ in range(3):      # a few plain proximal Newton steps
-        r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
-        dz, dl, dv, dy = riccati_newton_step_plain(
-            data, x.v, x.y, x.v, -r.z, -r.l, -r.v, sigma, alpha)
-        x = var_axpy(1.0, Variable(dz, dl, dv, dy), x, b)
-        x = x._replace(v=torch.clamp(x.v, min=0.0))
-    r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
-    _, _, args = assoc_step_inputs(data, x.v, x.y, x.v, -r.z, -r.l, -r.v,
-                                   sigma, alpha)
+    _, _, args = assoc_step_inputs(
+        *newton_step_args(data, Options.single_precision()))
     elems, _ = stage_elements_bl(*args)
     levels = []
 
@@ -689,35 +705,38 @@ def phase_copoly(B, device):
 
 def phase_longhorizon(device, Ns=(120, 240, 480), reps=5):
     """bench.py longhorizon on the card: solve_mpc_qp on the double
-    integrator in float32 with both Riccati steps, best of `reps` after a
-    warm call, at each N; both must succeed. Launches are counted over the
-    last N's calls."""
+    integrator in float32 with both Riccati steps, in turns (scan, assoc)
+    so that both see the same host, best of `reps` after a warm turn, at
+    each N; both must succeed. Launches are counted over the last N's
+    calls. Returns the counts and the smallest N from which the assoc
+    solve was the faster at that N and every larger one (None if at
+    none)."""
     from fbstab_tpu_torch.models.mpc_qp import mpc_dims, solve_mpc_qp
     from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
     from fbstab_tpu_torch.options import Options
 
     opts = Options.single_precision()
-    parts = []
+    parts, assoc_wins = [], []
     for N in Ns:
         data, _ = double_integrator(N, dtype=torch.float32, device=device)
         _, nx, nu, nc = mpc_dims(data)
         z = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
         guess = (z((N + 1) * (nx + nu)), z((N + 1) * nx), z((N + 1) * nc))
         counts = reset_launches()
-        best = {}
-        for mode in ("scan", "assoc"):
-            times = []
-            for i in range(reps + 1):
-                fresh = data._replace(x0=data.x0 + 1e-6 * i)
+        times = dict(scan=[], assoc=[])
+        for i in range(reps + 1):
+            fresh = data._replace(x0=data.x0 + 1e-6 * i)
+            for mode in times:
                 (x, core), ms = timed(lambda: solve_mpc_qp(
                     fresh, *guess, opts, riccati=mode))
                 if int(core.eflag) != 0:
                     fail(f"longhorizon N={N} {mode}: eflag "
                          f"{int(core.eflag)}")
                 if i:
-                    times.append(ms)
-            best[mode] = min(times)
+                    times[mode].append(ms)
+        best = {mode: min(t) for mode, t in times.items()}
         n = counts()
+        assoc_wins.append(best["assoc"] < best["scan"])
         parts.append(f"N={N} scan {best['scan']:.1f} ms assoc "
                      f"{best['assoc']:.1f} ms (scan/assoc "
                      f"{best['scan'] / best['assoc']:.3f})")
@@ -725,7 +744,12 @@ def phase_longhorizon(device, Ns=(120, 240, 480), reps=5):
           + f" | launches at N={Ns[-1]}: K5 {n['K5']} K1 {n['K1']}")
     if n["K5"] < 1:
         fail("longhorizon assoc did not launch K5")
-    return n
+    crossover = None
+    for N, wins in zip(reversed(Ns), reversed(assoc_wins)):
+        if not wins:
+            break
+        crossover = N
+    return n, crossover
 
 
 def phase_assoc_batch(B, device):
@@ -933,9 +957,12 @@ def main():
         k3_envelope(device)
         return
     if sys.argv[1:] == ["--assoc-crossover"]:
-        phase_longhorizon(device, Ns=(240, 300, 360, 420, 480))
+        _, crossover = phase_longhorizon(device, Ns=ASSOC_CROSSOVER_NS,
+                                         reps=7)
+        print(f"assoc crossover: the assoc solve is the faster from N = "
+              f"{crossover} on (of N = {ASSOC_CROSSOVER_NS})")
         return
-    k1 = phase_k1(8192, device)
+    k1 = phase_k1(device)
     k2 = phase_k2(1024, device)
     k3 = phase_k3(device)
     k4 = phase_k4(256, device)
@@ -948,7 +975,7 @@ def main():
     n_warm = phase_warmstart(8192, device)
     phase_plants(128, device)
     n_copoly = phase_copoly(2048, device)
-    n_long = phase_longhorizon(device)
+    n_long, _ = phase_longhorizon(device)
     n_assoc = phase_assoc_batch(256, device)
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
@@ -961,7 +988,7 @@ def main():
              source="fbstab_tpu_torch/csrc/riccati.cu",
              replaces="fbstab_tpu/ops/riccati_pallas.py:418",
              launches=n_adapt["K1"], launches_by_path=by_path("K1"),
-             design=ONE, **k1),
+             **k1),
         dict(name="fbstab_mpc_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_solve.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1109",

@@ -1,16 +1,16 @@
 // Shared definitions of the FBstab CUDA kernels.
 //
 // A `Lane` is the view of one instance's array: element k at p[k * s].
-// K1, K3 and K5 keep every per-instance array batch-last (s = B: element k
+// K3 and K5 keep every per-instance array batch-last (s = B: element k
 // of instance b at k * B + b, so the 32 threads of a warp, 32 consecutive
-// instances, touch 32 consecutive floats). K2 and K4 keep them
+// instances, touch 32 consecutive floats). K1, K2 and K4 keep them
 // instance-major (s = 1: element k of instance b at b * n + k, the
 // batch-first layout torch holds, so the threads of one instance's team
 // touch consecutive floats).
 //
 // A team is the group of threads that runs one instance: `Solo`, one
-// thread (K1, K3, and every kernel in the host replay), or `Team<T>`, a
-// thread_block_tile of T threads (K2, K4). Work split over a team goes
+// thread (K3, and the host replay's team of one), or `Team<T>`, a
+// thread_block_tile of T threads (K1, K2, K4). Work split over a team goes
 // round-robin: thread `rank` takes items rank, rank + size, ... Every
 // reduction is an xor butterfly, which leaves the same bits on every
 // thread, so a team's control flow never diverges.
@@ -72,11 +72,12 @@ struct Solo {
 // A team of T threads (T a power of two, at most 32): a tile of a warp.
 // Several teams may share a warp and run apart; a tile's shuffles and
 // syncs use only its own lanes' mask.
-template <int T>
+template <int T, bool S = true>
 struct Team {
-  // Copies each stage's operands into shared memory before working on them
-  // (riccati.cuh).
-  static constexpr bool kStages = true;
+  // Whether the team copies each stage's operands into a stage block in
+  // shared memory before working on them (riccati.cuh); a team that does
+  // not keeps the stage block in its device-memory scratch, as Solo does.
+  static constexpr bool kStages = S;
   cooperative_groups::thread_block_tile<T> g;
   static FB_HD int size() { return T; }
   FB_DEV int rank() const { return (int)g.thread_rank(); }

@@ -20,12 +20,14 @@
 // the team of one computes it, so the factors and the step are bit for bit
 // the same for any team size.
 //
-// A team that stages (K2, K4) works on the current stage in shared memory:
-// it copies E, L (factor pass) or the stage's factors (vector passes) into
-// its stage block in one coalesced sweep, computes the stage's factors
-// there and writes them to device memory in one sweep, so the dependent
-// chains of the solves wait on shared memory, not on device memory. The
-// team of one (K1) reads and writes everything in place.
+// A team that stages (K1, K2, K4) works on the current stage in shared
+// memory: it copies E, L (factor pass) or the stage's factors (vector
+// passes) into its stage block in one coalesced sweep, computes the
+// stage's factors there and writes them to device memory in one sweep, so
+// the dependent chains of the solves wait on shared memory, not on device
+// memory. A team that does not stage (K1 at stages too large for a block's
+// shared memory, and the team of one) reads and writes everything in
+// place, its stage block in its device-memory scratch.
 #pragma once
 
 #include "fbstab_common.cuh"
@@ -34,9 +36,9 @@
 // factors and vectors, then the stage block, whose offsets Qh ... P count
 // from its start: the current stage's Hessians, T, the weights' ratio
 // gamma ./ mus, four vector temporaries, and the staged operands (E, L, the
-// carried factor Lf and the next one Ln, M, SM, SG, AM, P). K1 keeps the
-// stage block in its scratch at `stage`; K2 and K4 keep it in shared
-// memory.
+// carried factor Lf and the next one Ln, M, SM, SG, AM, P). A team that
+// stages keeps the stage block in shared memory; one that does not, in its
+// scratch at `stage`.
 struct RicLayout {
   int Lc, M, SM, SG, AM, P, th, h, gam, mus, r1, stage;
   int Qh, Rh, Sh, T, gr, v0, v1, v2, v3;

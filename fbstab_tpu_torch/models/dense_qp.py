@@ -35,7 +35,8 @@ from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
 from fbstab_tpu_torch.core.problem import ProblemOps
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.device import resolve_device
-from fbstab_tpu_torch.models.mpc_qp import _lane_sigma, exact_f32_matmul
+from fbstab_tpu_torch.models.mpc_qp import (
+    _lane_sigma, _no_stream, exact_f32_matmul)
 from fbstab_tpu_torch.ops.pfb import pfb_weights
 from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
 from fbstab_tpu_torch.options import Options
@@ -296,11 +297,12 @@ def solve_dense_qp_batch(data: DenseQPData, z0, l0, v0,
 class FBstabDense:
     """Allocate-once/solve-many facade for one dense QP at a time; it runs
     a batch of one through solve_dense_qp_batch, on the card unless given
-    device="cpu". The JAX facade's output stream and Display tables wait
-    for the port of utils/printing.py (ROADMAP item 17)."""
+    device="cpu" (keyword-only: the positional parameters are the JAX
+    facade's, `stream` fifth). The JAX facade's output stream and Display
+    tables wait for the port of utils/printing.py."""
 
     def __init__(self, nz: int, nl: int, nv: int, dtype=torch.float64,
-                 device=None, stream=None):
+                 stream=None, *, device=None):
         if nz <= 0 or nv <= 0 or nl < 0:
             raise ValueError("FBstabDense requires nz > 0, nv > 0, nl >= 0.")
         _no_stream(stream)
@@ -368,13 +370,6 @@ class FBstabDense:
             raise ValueError(f"FBstabDense.solve: the data lies on "
                              f"{data.H.device}, the solver was made for "
                              f"{self.device}.")
-
-
-def _no_stream(stream) -> None:
-    if stream is not None:
-        raise NotImplementedError(
-            "output streams need the port of utils/printing.py (ROADMAP "
-            "item 17), which is not done yet")
 
 
 __all__ = [

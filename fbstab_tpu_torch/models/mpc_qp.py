@@ -466,12 +466,19 @@ MPC_PLAIN_OPS = MPC_OPS._replace(newton_step=_newton_step_op(_fused_step_impl))
 
 # The single-instance riccati="auto" takes the associative step from these
 # horizons on. On the CPU: the JAX package's CPU crossover (float64, double
-# integrator). On CUDA: the crossover measured on an H100 in float32 on the
-# double integrator (`chip_smoke.py --assoc-crossover`, PERF.md): the scan
-# is the faster up to N = 420, the two are level at N = 480 and the
-# associative step gains with N.
+# integrator). On CUDA: the crossover measured on an H100 80GB HBM3 at
+# 700 W in float32 on the double integrator (`chip_smoke.py
+# --assoc-crossover`, the two solves in turns, best of 7; PERF.md), scan /
+# assoc in ms in two runs:
+#     N = 240    585 / 1109    534 / 1146
+#     N = 360    916 / 1293    965 / 1551
+#     N = 480   1227 / 1442   1310 / 1776
+#     N = 600   1396 / 1438   1549 / 1747
+#     N = 720   1853 / 1916   1813 / 2267
+#     N = 960   1981 / 1460   2265 / 2236
+# Both paths are host-bound; the associative step wins from N = 960 on.
 ASSOC_MIN_HORIZON = 192
-ASSOC_MIN_HORIZON_CUDA = 480
+ASSOC_MIN_HORIZON_CUDA = 960
 
 
 def assoc_step_inputs(d, v, y, vbar, rz, rl, rv, sigma, alpha):
@@ -607,8 +614,8 @@ def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options,
 
 
 def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
-                       options: Options = Options(), scaling=None,
-                       riccati: str = "auto"):
+                       options: Options = Options(), riccati: str = "auto",
+                       scaling=None):
     """Batched MPC solve; every data array and guess has a leading batch
     axis. Returns (Variable or VariableDF, CoreOut).
 
@@ -619,12 +626,13 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
     VariableDF pair and whose `residual` is the double-float-verified
     value in original units.
 
-    scaling: optional precomputed batched MpcScaling for `data`.
     riccati: "scan" (the sequential stage recursion on the tiers of
     _solve_mpc_qp_batch_raw), "assoc" (the lockstep solver on the
     associative Riccati step) or "auto" (_auto_batch_riccati). The
     refinement's corrections take the sequential step either way, as in
-    the JAX package."""
+    the JAX package.
+    scaling: optional precomputed batched MpcScaling for `data`.
+    The parameters come in the JAX package's order."""
     if riccati not in ("auto", "scan", "assoc"):
         raise ValueError(f"riccati must be 'auto', 'scan' or 'assoc', got "
                          f"{riccati!r}")
@@ -672,15 +680,26 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
 # Facade (reference: FBstabMpc, fbstab_mpc.h:56).
 # ------------------------------------------------------------------
 
+def _no_stream(stream) -> None:
+    """The facades take the JAX package's `stream` parameter in its place;
+    an output stream is refused until utils/printing.py is ported."""
+    if stream is not None:
+        raise NotImplementedError(
+            "output streams need the port of utils/printing.py, which is "
+            "not done yet")
+
+
 class FBstabMpc:
     """Allocate-once/solve-many facade for one MPC QP at a time; it runs a
     batch of one through the batched functions above. It solves on the
-    card unless given device="cpu"."""
+    card unless given device="cpu" (keyword-only: the positional
+    parameters are the JAX facade's, `stream` sixth)."""
 
     def __init__(self, N: int, nx: int, nu: int, nc: int,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, stream=None, *, device=None):
         if N <= 0 or nx <= 0 or nu <= 0 or nc <= 0:
             raise ValueError("FBstabMpc requires N, nx, nu, nc > 0.")
+        _no_stream(stream)
         self.N, self.nx, self.nu, self.nc = N, nx, nu, nc
         self.nz = (N + 1) * (nx + nu)
         self.nl = (N + 1) * nx

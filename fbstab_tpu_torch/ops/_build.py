@@ -130,7 +130,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_mpc_subproblem.argtypes = ([I, I, I, I, I, SolveOpts] + [P] * 32
                                       + [P])
     lib.fb_mpc_subproblem.restype = I
-    for fn in (lib.fb_mpc_solve_info, lib.fb_mpc_subproblem_info):
+    for fn in (lib.fb_mpc_solve_info, lib.fb_mpc_subproblem_info,
+               lib.fb_riccati_info):
         fn.argtypes = [I, I, I, I, P]
         fn.restype = I
     lib.fb_combine_ws_floats.argtypes = [I]
@@ -146,8 +147,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def kernel_info(fn, N, nx, nu, nc) -> dict:
-    """A fused MPC kernel's launch shape at these dims, from its C info
-    function (`lib.fb_mpc_solve_info` or `lib.fb_mpc_subproblem_info`)."""
+    """An MPC kernel's launch shape at these dims, from its C info
+    function (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
+    `lib.fb_riccati_info`)."""
     info = (ctypes.c_int * 6)()
     check(fn(N, nx, nu, nc, info), "kernel info")
     return dict(zip(("team", "teams_per_block", "registers", "local_bytes",

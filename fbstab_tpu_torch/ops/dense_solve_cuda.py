@@ -26,8 +26,14 @@ import torch
 from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.ops.mpc_solve_cuda import solve_opts
-from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, to_batch_last
+from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
 from fbstab_tpu_torch.options import Options
+
+
+def to_batch_last(a: torch.Tensor) -> torch.Tensor:
+    """(B, ...) -> contiguous (rows, B): element k of instance b at
+    k * B + b, the layout of K3's arrays."""
+    return a.reshape(a.shape[0], -1).t().contiguous()
 
 
 def fbstab_dense_solve_plain(data, z0, l0, v0, options: Options):

@@ -19,7 +19,7 @@ import torch
 
 from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
-from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
+from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
 from fbstab_tpu_torch.options import Options
 
 # The dynamic shared memory a block of K2 or K4 gets (the default; they do
@@ -57,14 +57,6 @@ def solve_opts(options: Options, struct=None):
         max_inner=o.max_inner_iters, max_ls=o.max_linesearch_iters,
         check_feasibility=int(o.check_feasibility),
         nonmonotone=int(o.nonmonotone_linesearch))
-
-
-def check_batch(B, data):
-    """Every array of `data` holds B instances."""
-    for name, a in data._asdict().items():
-        if a.shape[0] != B:
-            raise ValueError(f"data.{name} has {a.shape[0]} instances, the "
-                             f"iterates {B}")
 
 
 def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):

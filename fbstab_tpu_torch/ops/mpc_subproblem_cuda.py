@@ -22,8 +22,8 @@ from typing import NamedTuple
 import torch
 
 from fbstab_tpu_torch.core.variable import Variable, var_norm
-from fbstab_tpu_torch.ops.mpc_solve_cuda import check_batch, check_smem
-from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
+from fbstab_tpu_torch.ops.mpc_solve_cuda import check_smem
+from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
 from fbstab_tpu_torch.options import Options
 
 

@@ -5,7 +5,9 @@ One launch runs, for every instance of the batch, the PFB weights, the
 barrier-augmented stage Hessians, the forward Riccati matrix recursion,
 the forward vector recursion and the backward substitution, giving
 (dz, dl); the dual recovery (dv, dy) is a wide elementwise pass done here
-in PyTorch, as the JAX wrapper leaves it to XLA.
+in PyTorch, as the JAX wrapper leaves it to XLA. The kernel runs a team of
+threads per instance on the batch-first (instance-major) tensors as torch
+holds them.
 
 `riccati_newton_step_batched` takes the plain version
 (`riccati_newton_step_plain`, the Python stage loop of models/mpc_qp.py)
@@ -28,13 +30,6 @@ def riccati_newton_step_plain(data, v, y, vbar, rz, rl, rv, sigma, alpha):
     return dz, dl, dv, dy
 
 
-def to_batch_last(a: torch.Tensor) -> torch.Tensor:
-    """(B, ...) -> contiguous (rows, B): element k of instance b at
-    k * B + b, the layout of K1's, K3's and K5's arrays (K2 and K4 read
-    the batch-first tensors as they are)."""
-    return a.reshape(a.shape[0], -1).t().contiguous()
-
-
 def _check_f32(device, **tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32 or t.device != device:
@@ -43,10 +38,19 @@ def _check_f32(device, **tensors):
                 f"{t.dtype} on {t.device}")
 
 
+def check_batch(B, data):
+    """Every array of `data` holds B instances."""
+    for name, a in data._asdict().items():
+        if a.shape[0] != B:
+            raise ValueError(f"data.{name} has {a.shape[0]} instances, the "
+                             f"iterates {B}")
+
+
 def launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
                         alpha: float, stream: int):
-    """Lays the inputs out batch-last, allocates outputs and scratch, and
-    launches K1 from `lib`. Returns batch-first (dz, dl)."""
+    """Allocates outputs and scratch and launches K1 from `lib` on the
+    batch-first inputs (contiguous, as the kernel reads them). Returns
+    batch-first (dz, dl)."""
     N, nx, nu, nc = (data.A.shape[-3], data.A.shape[-1], data.B.shape[-1],
                      data.E.shape[-2])
     B = v.shape[0]
@@ -62,20 +66,21 @@ def launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
                              f"expected {(B, n)}")
     sig = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     sig = sig.reshape(-1).expand(B).contiguous()
-    ins = [to_batch_last(a) for a in (
+    check_batch(B, data)
+    ins = [a.contiguous() for a in (
         data.Q, data.R, data.S, data.A, data.B, data.E, data.L,
         v, y, vbar, rz, rl, rv)]
-    dz = torch.empty(N1 * ns, B, dtype=torch.float32, device=dev)
-    dl = torch.empty(N1 * nx, B, dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.fb_riccati_ws_floats(N, nx, nu, nc), B,
-                     dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dz = torch.empty(B, N1 * ns, **f32)
+    dl = torch.empty(B, N1 * nx, **f32)
+    ws = torch.empty(B, lib.fb_riccati_ws_floats(N, nx, nu, nc), **f32)
     err = lib.fb_riccati_step(
         N, nx, nu, nc, B, float(alpha), 1.0 - float(alpha), sig.data_ptr(),
         *[a.data_ptr() for a in ins], dz.data_ptr(), dl.data_ptr(),
         ws.data_ptr(), stream)
     from fbstab_tpu_torch.ops._build import check
     check(err, "riccati_newton_step")
-    return dz.t().contiguous(), dl.t().contiguous()
+    return dz, dl
 
 
 def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,

@@ -1,20 +1,39 @@
-"""Times K2, K4 and the one-shot MPC path of given source trees on one GPU.
+"""Times the MPC kernels and paths of given source trees on one GPU.
 
     python3 fbstab_tpu_torch/tools/ab_mpc.py TREE [TREE ...]
 
 For each tree, in the order given, a fresh process imports
 fbstab_tpu_torch from TREE (building its kernels there; the tree must hold
-fbstab_tpu_torch/workloads.py) and prints one JSON line: K2's mean time on
-the equilibrated headline batch at B = 1024 (CUDA events, three launches
-after a warm one), the one-shot solve_mpc_qp_batch(...,
-Options.single_precision()) QPs/s at B = 8192 (best of three calls after a
-warm one), the subfused copoly solve on K4 at B = 256 (equilibrated; CUDA
-events, one call after a warm one, as chip_smoke.py times it), the copoly
-path solve_mpc_qp_batch(..., Options.single_precision()) QPs/s at
-B = 2048 through K4 (best of two calls after a warm one), and K2's and
-K4's registers and spill bytes from the tree's build log. Pass a
-checkout of the parent and of the change as A B B A to compare them in
-turns on one card.
+fbstab_tpu_torch/workloads.py) and prints one JSON line, every solve under
+Options.single_precision():
+  - k1_headline_ms, k1_copoly_ms: K1 (the Newton-step wrapper, as the
+    solvers call it) on the equilibrated headline batch at B = 8192 and the
+    equilibrated copolymerization reactor at B = 2048, on seeded random
+    iterates (K1's work does not depend on their values); CUDA events,
+    five calls after a warm one;
+  - k2_ms: K2 on the equilibrated headline batch at B = 1024 (CUDA events,
+    three launches after a warm one);
+  - main_qps: the one-shot solve_mpc_qp_batch at B = 8192 (best of three
+    calls after a warm one);
+  - adaptive_qps: the adaptive headline
+    (solve_mpc_qp_batch_adaptive_device, phase1 = 16, P2 = 1024) at
+    B = 8192 (best of three after a warm one);
+  - warmstart_qps: the receding-horizon sweep of the headline plant,
+    B = 8192 for 8 steps (best of two after a warm one);
+  - k4_ms: the subfused copoly solve on K4 at B = 256 (equilibrated; CUDA
+    events, one call after a warm one, as chip_smoke.py times it);
+  - copoly_qps: the copoly path at B = 2048 through K4 (best of two after
+    a warm one);
+  - assoc_batch_ms: solve_mpc_qp_batch(..., riccati="assoc") on the copoly
+    batch at B = 256 (best of two after a warm one);
+  - longhorizon_ms: the single-instance solve_mpc_qp on the double
+    integrator with riccati="scan" and "assoc" at N = 120, 240, 480 (best
+    of three after a warm one);
+  - K1's, K2's and K4's registers and spill bytes from the tree's build
+    log.
+Pass a checkout of the parent and of the change as A B B A to compare them
+in turns on one card; copies of one tree that differ in one constant, to
+weigh it.
 """
 
 from __future__ import annotations
@@ -24,19 +43,49 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
+LONG_NS = (120, 240, 480)
+
+
+def k1_inputs(data, seed=5):
+    """Seeded iterate pieces and negated residuals for one Newton step on
+    `data` (v > 0 around the complementarity corner, sigma 3e-4), on its
+    device: the arguments of riccati_newton_step_batched after `data`."""
+    import torch
+
+    N1, nx, nu, nc = (data.E.shape[1], data.A.shape[-1], data.B.shape[-1],
+                      data.E.shape[-2])
+    B = data.x0.shape[0]
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float32,
+                               device=data.x0.device)
+    v = np.abs(rng.standard_normal((B, N1 * nc)))
+    y = rng.standard_normal((B, N1 * nc))
+    vbar = v + 0.1 * rng.standard_normal((B, N1 * nc))
+    rz, rl, rv = (rng.standard_normal((B, N1 * n))
+                  for n in (nx + nu, nx, nc))
+    return (*(t(a) for a in (v, y, vbar, rz, rl, rv)), 3e-4, 0.95)
+
 
 def measure(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
-    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.models.mpc_qp import (
+        MpcQPData, solve_mpc_qp, solve_mpc_qp_batch)
     from fbstab_tpu_torch.models.mpc_subfused import (
         fbstab_mpc_solve_subfused)
+    from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
+    from fbstab_tpu_torch.models.receding_horizon import simulate_batch
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops import _build
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
+    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.parallel.adaptive import (
+        solve_mpc_qp_batch_adaptive_device)
     from fbstab_tpu_torch.workloads import (
         HEADLINE, build_batch, build_copoly, cuda_ms, timed, zeros_guess)
 
@@ -44,25 +93,54 @@ def measure(tree: str) -> dict:
     dev = torch.device("cuda", 0)
     opts = Options.single_precision()
     equilibrated = lambda d: apply_mpc_scaling(d, ruiz_mpc_scaling(d))
+    best = lambda fn, n: min(timed(fn)[1] for _ in range(n + 1))
+
+    def k1_ms(data):
+        args = k1_inputs(data)
+        return cuda_ms(lambda: riccati_newton_step_batched(data, *args), 5)
+
+    row = dict(tree=tree)
+    row["k1_headline_ms"] = k1_ms(
+        equilibrated(build_batch(8192, **HEADLINE, device=dev)))
+    row["k1_copoly_ms"] = k1_ms(equilibrated(build_copoly(2048, dev)))
 
     data = equilibrated(build_batch(1024, **HEADLINE, device=dev))
     guess = zeros_guess(data)
-    k2_ms = cuda_ms(lambda: fbstab_mpc_solve_fused(data, *guess, opts), 3)
+    row["k2_ms"] = cuda_ms(
+        lambda: fbstab_mpc_solve_fused(data, *guess, opts), 3)
     data = build_batch(8192, **HEADLINE, device=dev)
     guess = zeros_guess(data)
-    times = [timed(lambda: solve_mpc_qp_batch(data, *guess, opts))[1]
-             for _ in range(4)][1:]
+    row["main_qps"] = 8192e3 / best(
+        lambda: solve_mpc_qp_batch(data, *guess, opts), 3)
+    row["adaptive_qps"] = 8192e3 / best(
+        lambda: solve_mpc_qp_batch_adaptive_device(
+            data, *guess, opts, phase1_newton_iters=16, phase2_size=1024), 3)
+    shared = MpcQPData(*(a[:1] for a in data))
+    row["warmstart_qps"] = 8 * 8192e3 / best(
+        lambda: simulate_batch(shared, 8, data.x0, opts), 2)
+
     data = equilibrated(build_copoly(256, dev))
     guess = zeros_guess(data)
-    k4_ms = cuda_ms(lambda: fbstab_mpc_solve_subfused(data, *guess, opts), 1)
+    row["k4_ms"] = cuda_ms(
+        lambda: fbstab_mpc_solve_subfused(data, *guess, opts), 1)
     data = build_copoly(2048, dev)
     guess = zeros_guess(data)
-    copoly = [timed(lambda: solve_mpc_qp_batch(data, *guess, opts))[1]
-              for _ in range(3)][1:]
-    return dict(tree=tree, k2_ms=k2_ms, main_qps=8192e3 / min(times),
-                main_ms=times, k4_ms=k4_ms,
-                copoly_qps=2048e3 / min(copoly), copoly_ms=copoly,
-                log=str(_build.library_path().with_suffix(".log")))
+    row["copoly_qps"] = 2048e3 / best(
+        lambda: solve_mpc_qp_batch(data, *guess, opts), 2)
+    data = build_copoly(256, dev)
+    guess = zeros_guess(data)
+    row["assoc_batch_ms"] = best(
+        lambda: solve_mpc_qp_batch(data, *guess, opts, riccati="assoc"), 2)
+
+    row["longhorizon_ms"] = {}
+    for N in LONG_NS:
+        data, _ = double_integrator(N, dtype=torch.float32, device=dev)
+        guess = tuple(g[0] for g in zeros_guess(data))
+        for mode in ("scan", "assoc"):
+            row["longhorizon_ms"][f"{mode} N={N}"] = best(
+                lambda: solve_mpc_qp(data, *guess, opts, riccati=mode), 3)
+    row["log"] = str(_build.library_path().with_suffix(".log"))
+    return row
 
 
 def main():
@@ -81,7 +159,8 @@ def main():
             sys.exit(proc.returncode)
         row = json.loads(proc.stdout.strip().splitlines()[-1])
         log = Path(row.pop("log")).read_text()
-        row.update(k2_ptxas=ptxas_lines("mpc_solve.cu", log),
+        row.update(k1_ptxas=ptxas_lines("riccati.cu", log),
+                   k2_ptxas=ptxas_lines("mpc_solve.cu", log),
                    k4_ptxas=ptxas_lines("mpc_subproblem.cu", log))
         print(json.dumps(row), flush=True)
 

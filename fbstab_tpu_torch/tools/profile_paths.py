@@ -7,7 +7,8 @@ solve and the adaptive MPC headline (phase1 = 16, P2 = B // 8) at
 B = 8192 on the headline batch, the dense solve at B = 4096, n = 32,
 q = 64, the copolymerization reactor (N = 80) at B = 2048 through tier 2,
 the batched riccati="assoc" solve of it at B = 256, the
-single-instance assoc solve of the double integrator at N = 480, and the
+single-instance scan and assoc solves of the double integrator at N = 480,
+and the
 receding-horizon sweep of the headline plant at B = 8192 for 8 steps
 (`bench.py warmstart`) — one
 warm call, one timed call (host clock around the
@@ -15,9 +16,11 @@ synchronized call), then one call under torch.profiler. Prints one JSON
 line per path: the plain wall time, the profiled wall time, the device
 time summed over the kernels that ran (one stream, so they do not
 overlap), the idle share 1 - device / profiled wall, the number of
-kernels and the five with the most device time. The profiler's own host
-overhead inflates the profiled wall time of launch-heavy stages, so the
-idle share is an upper bound.
+kernels, the five with the most device time, and the device time and
+launches of each of the port's MPC and dense kernels K1-K5 (`by_kernel`,
+summed over the path's call). The profiler's own host overhead inflates
+the profiled wall time of launch-heavy stages, so the idle share is an
+upper bound.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fbstab_tpu_torch import workloads as wl
+
+
+# The port's kernels by the name of their __global__ function in csrc/.
+KERNELS = dict(K1="riccati_step_kernel", K2="mpc_solve_kernel",
+               K3="dense_solve_kernel", K4="mpc_subproblem_kernel",
+               K5="assoc_combine_kernel")
 
 
 def wall_ms(fn):
@@ -48,11 +57,17 @@ def profile_path(name, fn):
         by_name[e.name] += e.time_range.end - e.time_range.start
     busy = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ours = {}
+    for k, fn_name in KERNELS.items():
+        mine = [e for e in kernels if fn_name in e.name]
+        if mine:
+            ours[k] = dict(ms=sum(e.time_range.end - e.time_range.start
+                                  for e in mine) / 1e3, launches=len(mine))
     print(json.dumps(dict(
         path=name, wall_ms=plain, profiled_wall_ms=prof_wall,
         device_ms=busy if kernels else None,
         idle_share=1.0 - busy / prof_wall if kernels else None,
-        kernels=len(kernels),
+        kernels=len(kernels), by_kernel=ours,
         top=[(k[:60], round(v / 1e3, 3)) for k, v in top])), flush=True)
 
 
@@ -89,6 +104,8 @@ def main():
         small, *sg, opts, riccati="assoc"))
     di, _ = double_integrator(480, dtype=torch.float32, device=dev)
     dig = tuple(g[0] for g in wl.zeros_guess(di))
+    profile_path("longhorizon_scan", lambda: solve_mpc_qp(
+        di, *dig, opts, riccati="scan"))
     profile_path("longhorizon_assoc", lambda: solve_mpc_qp(
         di, *dig, opts, riccati="assoc"))
     shared = MpcQPData(*(a[:1] for a in mpc))

@@ -102,6 +102,30 @@ def zeros_guess(data):
             torch.zeros(B, (N + 1) * nc, **kw))
 
 
+def newton_step_args(data, options, steps=3):
+    """The arguments (data, v, y, vbar, rz, rl, rv, sigma, alpha) of a
+    Newton step (K1's, or the associative step's) at the iterate that
+    `steps` plain proximal Newton steps from the zero guess reach, with
+    vbar = v and the negated inner residual there."""
+    from fbstab_tpu_torch.core.residuals import inner_residual
+    from fbstab_tpu_torch.core.variable import Variable, var_axpy
+    from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, _b_vec, _gemvA
+    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_plain
+
+    z0, l0, v0 = zeros_guess(data)
+    b = _b_vec(data)
+    x = Variable(z=z0, l=l0, v=v0, y=b - _gemvA(data, z0))
+    sigma, alpha = options.sigma0, options.alpha
+    for _ in range(steps):
+        r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
+        d = riccati_newton_step_plain(data, x.v, x.y, x.v, -r.z, -r.l, -r.v,
+                                      sigma, alpha)
+        x = var_axpy(1.0, Variable(*d), x, b)
+        x = x._replace(v=torch.clamp(x.v, min=0.0))
+    r = inner_residual(MPC_OPS, data, x, x, sigma, alpha)
+    return data, x.v, x.y, x.v, -r.z, -r.l, -r.v, sigma, alpha
+
+
 def dense_zeros(data):
     """Zero (z, l, v) guesses for a dense batch."""
     B, kw = data.H.shape[0], dict(dtype=data.H.dtype, device=data.H.device)

@@ -6,9 +6,11 @@ the replayed fused solvers (K2, MPC; K3, dense) must take exactly the plain
 solvers' decisions on every lane: the same exit flag, Newton and proximal
 iteration counts, iterates within 1e-9; so must the host outer loop of the
 subfused tier on the replayed per-subproblem kernel (K4). K2 and K4 are
-replayed on the team of one in their instance-major layout. The replayed
-Newton step (K1) and scan-level combine (K5) must match their plain
-versions within 1e-10. This pins the per-lane semantics of the
+replayed on the team of one in their instance-major layout, and on teams
+of host threads. The replayed Newton step (K1, instance-major) must match
+its plain version within 1e-10 and, on every team, give the team of one's
+bits; the scan-level combine (K5) must match its plain version within
+1e-10. This pins the per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
 hide on the card (chip_smoke.py bounds the float32 Newton counts there).
 The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
@@ -41,10 +43,9 @@ from fbstab_tpu_torch.ops import _build  # noqa: E402
 from fbstab_tpu_torch.ops.assoc_combine_cuda import (  # noqa: E402
     SpanElement, combine_bl_plain)
 from fbstab_tpu_torch.ops.dense_solve_cuda import (  # noqa: E402
-    fbstab_dense_solve_plain)
+    fbstab_dense_solve_plain, to_batch_last)
 from fbstab_tpu_torch.ops.mpc_solve_cuda import (  # noqa: E402
     fbstab_mpc_solve_plain, solve_opts)
-from fbstab_tpu_torch.ops.riccati_cuda import to_batch_last  # noqa: E402
 from fbstab_tpu_torch.options import Options  # noqa: E402
 
 HARNESS = Path(__file__).resolve().parent / "torch_host_replay.cpp"
@@ -84,14 +85,16 @@ def lib(tmp_path_factory):
     lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
-    lib.fb_replay_set_team.argtypes = [I]
-    lib.fb_replay_set_team.restype = None
+    for fn in (lib.fb_replay_set_team, lib.fb_replay_set_stages):
+        fn.argtypes = [I]
+        fn.restype = None
     return lib
 
 
 @contextlib.contextmanager
 def on_team(lib, T):
-    """Replays K2 and K4 on a team of T host threads inside the block."""
+    """Replays K1, K2 and K4 on a team of T host threads inside the
+    block."""
     lib.fb_replay_set_team(T)
     try:
         yield
@@ -196,14 +199,53 @@ def _check_replayed_solver(lib, data, opts):
         atol=1e-9 * (1 + cp.initial_residual.max().item()))
 
 
+def _replay_step(lib, td, ins, T=1, stages=True):
+    """The replayed K1 on the instance-major (batch-first) arrays, on a
+    team of T host threads that stages or works in place: (dz, dl)."""
+    N, nx, nu, nc = tm.mpc_dims(td)
+    B = td.Q.shape[0]
+    f64 = dict(dtype=torch.float64)
+    args = [a.contiguous() for a in (td.Q, td.R, td.S, td.A, td.B, td.E,
+                                     td.L, *ins[:-1])]
+    dz = torch.empty(B, (N + 1) * (nx + nu), **f64)
+    dl = torch.empty(B, (N + 1) * nx, **f64)
+    ws = torch.empty(B, lib.fb_riccati_ws_floats(N, nx, nu, nc), **f64)
+    lib.fb_replay_set_stages(int(stages))
+    try:
+        with on_team(lib, T):
+            assert lib.fb_riccati_step(
+                N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA, ins[-1].data_ptr(),
+                *[a.data_ptr() for a in args], dz.data_ptr(), dl.data_ptr(),
+                ws.data_ptr()) == 0
+    finally:
+        lib.fb_replay_set_stages(1)
+    return dz, dl
+
+
+# The teams K1's device code is replayed on: the team of one, teams of 2 to
+# 32 threads that stage each stage's operands, and a team of 32 that works
+# in place (K1 at stages too large for a block's shared memory).
+K1_TEAMS = {"1": (1, True), "2": (2, True), "4": (4, True), "8": (8, True),
+            "32": (32, True), "32_in_place": (32, False)}
+
+
+@pytest.mark.parametrize("team", list(K1_TEAMS))
 @pytest.mark.parametrize("plant,N,B", [
     ("double_integrator", 8, 4),
     ("servo_motor", 5, 2),
     ("copolymerization_reactor", 6, 2),
+    # A tier-3 shape (beyond K2's and K4's caps): the JAX package's gate
+    # corner nx = 32, nu = 24, nc = 48, the bench's generator.
+    ("gate_corner", 2, 2),
 ])
-def test_replayed_newton_step_matches_plain_step(lib, plant, N, B):
-    """Per-lane sigma, random iterates around the complementarity corner."""
-    arrays = plant_arrays(plant, N, B)
+def test_replayed_newton_step_matches_plain_step(lib, plant, N, B, team):
+    """Per-lane sigma, random iterates around the complementarity corner:
+    the plain step within 1e-10, and on a team of T > 1 host threads (the
+    kernel's split of every stage) dz and dl bit for bit the team of one's,
+    since every factor and step entry is computed by one thread in the team
+    of one's order."""
+    arrays = (headline_arrays(B, N, 32, 24, 48) if plant == "gate_corner"
+              else plant_arrays(plant, N, B))
     N, nx, nu, nc, nz, nl, nv = dims(arrays)
     rng = np.random.default_rng(N)
     v = np.abs(rng.standard_normal((B, nv)))
@@ -212,25 +254,18 @@ def test_replayed_newton_step_matches_plain_step(lib, plant, N, B):
     rz, rl, rv = (rng.standard_normal((B, n)) for n in (nz, nl, nv))
     sigma = 10.0 ** rng.uniform(-4, -1, B)
     td = torch_data(arrays, torch.float64)
-    v, y, vbar, rz, rl, rv, sigma = (torch.tensor(a) for a in
-                                     (v, y, vbar, rz, rl, rv, sigma))
-    ins = [to_batch_last(a) for a in (td.Q, td.R, td.S, td.A, td.B, td.E,
-                                      td.L, v, y, vbar, rz, rl, rv)]
-    dz = torch.empty(nz, B, dtype=torch.float64)
-    dl = torch.empty(nl, B, dtype=torch.float64)
-    ws = torch.empty(lib.fb_riccati_ws_floats(N, nx, nu, nc), B,
-                     dtype=torch.float64)
-    assert lib.fb_riccati_step(N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA,
-                               sigma.data_ptr(),
-                               *[a.data_ptr() for a in ins], dz.data_ptr(),
-                               dl.data_ptr(), ws.data_ptr()) == 0
-    pz, pl, *_ = tm._fused_step_impl(td, v, y, vbar, rz, rl, rv,
-                                     sigma, ALPHA)
-    for name, got, want in (("dz", dz.t(), pz), ("dl", dl.t(), pl)):
+    ins = [torch.tensor(a) for a in (v, y, vbar, rz, rl, rv, sigma)]
+    T, stages = K1_TEAMS[team]
+    dz, dl = _replay_step(lib, td, ins, T, stages)
+    pz, pl, *_ = tm._fused_step_impl(td, *ins, ALPHA)
+    for name, got, want in (("dz", dz, pz), ("dl", dl, pl)):
         w = want.numpy()
         np.testing.assert_allclose(got.numpy(), w, rtol=1e-10,
                                    atol=1e-10 * (1 + np.abs(w).max()),
                                    err_msg=name)
+    if T > 1:
+        oz, ol = _replay_step(lib, td, ins)
+        assert torch.equal(dz, oz) and torch.equal(dl, ol)
 
 
 def _replay_dense(lib, data, options):

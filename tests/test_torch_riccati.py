@@ -83,6 +83,51 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert riccati_cuda.riccati_newton_step_batched.launches == before
 
 
+class RecordingLib:
+    """Stands in for the kernel library: records each launch's arguments
+    and each scratch-size query and reports success."""
+
+    def __init__(self, ws_floats=11):
+        self.calls, self.sizes, self.ws_floats = [], [], ws_floats
+
+    def fb_riccati_ws_floats(self, *dims):
+        self.sizes.append(dims)
+        return self.ws_floats
+
+    def fb_riccati_step(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
+    """K1 reads the data, the iterate pieces and the residuals in place
+    (instance-major is torch's batch-first layout) and writes (B, n)
+    outputs that become dz and dl: no transposed copy on either side. The
+    scratch is (B, the library's floats per instance)."""
+    arrays = headline_arrays(5, N=4)
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    td = torch_data(arrays, torch.float32)
+    td = type(td)(*(a.contiguous() for a in td))
+    ins = [torch.tensor(a, dtype=torch.float32)
+           for a in _step_inputs(arrays, seed=2)]
+    lib = RecordingLib()
+    dz, dl = riccati_cuda.launch_riccati_step(lib, td, *ins[:-1], ins[-1],
+                                              ALPHA, 7)
+    (args,) = lib.calls
+    assert args[:5] == (N, nx, nu, nc, 5) and args[-1] == 7
+    assert args[5] == pytest.approx(ALPHA) and args[6] == pytest.approx(
+        1 - ALPHA)
+    want = (td.Q, td.R, td.S, td.A, td.B, td.E, td.L, *ins[:-1])
+    assert list(args[8:21]) == [a.data_ptr() for a in want]
+    assert args[21:23] == (dz.data_ptr(), dl.data_ptr())
+    assert (tuple(dz.shape), tuple(dl.shape)) == ((5, nz), (5, nl))
+    assert lib.sizes == [(N, nx, nu, nc)]
+    assert not hasattr(riccati_cuda, "to_batch_last")
+    with pytest.raises(ValueError, match="instances"):
+        riccati_cuda.launch_riccati_step(lib, td._replace(Q=td.Q[:4]),
+                                         *ins[:-1], ins[-1], ALPHA, 7)
+
+
 def test_factor_failure_is_nan_and_flags_the_lane():
     """A non-SPD stage (negative cost) fails the factorization on that lane
     only, through NaN factor diagonals, as in the reference."""
@@ -117,19 +162,30 @@ def test_cholesky_nan_on_failure_semantics(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["headline", "copolymerization"])
+@pytest.mark.parametrize("shape", ["headline", "copolymerization",
+                                   "gate_corner", "beyond_a_block"])
 @pytest.mark.parametrize("sigma_per_lane", [False, True])
 def test_cuda_kernel_matches_plain_version(shape, sigma_per_lane):
     """K1, reached through the solvers' Newton-step dispatch, on the card
     against its plain version on the same float32 inputs, at the headline
-    stage dims and at the copolymerization reactor's (N=80 nx=18 nu=5
-    nc=10): max |dK - dP| / (1 + max |dP|) <= 1e-3 per lane on dz and dl
-    (float32 Choleskys in another summation order; float32 vs float64 of
-    the plain version is <= 2e-4 on these inputs)."""
+    stage dims (a team of 8 per instance, B = 255 leaves the last block
+    part empty), at the copolymerization reactor's (N=80 nx=18 nu=5 nc=10;
+    a warp per instance) and at the JAX package's gate corner (N=6 nx=32
+    nu=24 nc=48, a stage block beyond 48 KB): max |dK - dP| / (1 + max
+    |dP|) <= 1e-3 per lane on dz and dl (float32 Choleskys in another
+    summation order; float32 vs float64 of the plain version is <= 2e-4 on
+    these inputs). At nx=112 (N=2 nu=8 nc=16), whose stage block no block
+    can hold, so the team works in place, float32 rounding alone moves the
+    plain version up to 7.4e-4 from its float64 run on these inputs: there
+    the bound is three times that distance where it exceeds 1e-3."""
     require_cuda()
     dev = torch.device("cuda", 0)
-    arrays = (headline_arrays(256) if shape == "headline" else
-              plant_arrays("copolymerization_reactor", 80, 64))
+    arrays = {"headline": lambda: headline_arrays(255),
+              "copolymerization": lambda: plant_arrays(
+                  "copolymerization_reactor", 80, 64),
+              "gate_corner": lambda: headline_arrays(16, 6, 32, 24, 48),
+              "beyond_a_block": lambda: headline_arrays(4, 2, 112, 8, 16),
+              }[shape]()
     ins = _step_inputs(arrays, seed=5)
     sig = ins[-1] if sigma_per_lane else 3e-4
     td = torch_data(arrays, torch.float32, dev)
@@ -143,6 +199,21 @@ def test_cuda_kernel_matches_plain_version(shape, sigma_per_lane):
     assert riccati_cuda.riccati_newton_step_batched.launches == before + 1
     assert bool(got[4].all())
     want = riccati_cuda.riccati_newton_step_plain(td, *args, sig, ALPHA)
+    from fbstab_tpu_torch.ops import _build
+    info = _build.kernel_info(_build.load_library().fb_riccati_info,
+                              *tm.mpc_dims(td))
+    assert (info["smem_bytes"] == 0) == (shape == "beyond_a_block")
+    rel = lambda g, w: ((g.double() - w).abs().amax(1)
+                        / (1 + w.abs().amax(1)))
+    tol = 1e-3
+    if shape == "beyond_a_block":
+        f64 = riccati_cuda.riccati_newton_step_plain(
+            type(td)(*(a.double() for a in td)),
+            *(a.double() for a in args),
+            sig.double() if sigma_per_lane else sig, ALPHA)
+        gap = max(rel(w, w64).max().item()
+                  for w, w64 in zip(want[:2], f64[:2]))
+        tol = max(tol, 3 * gap)
     for g, w in zip(got[:2], want[:2]):
-        err = (g - w).abs().amax(1) / (1 + w.abs().amax(1))
-        assert bool(torch.isfinite(err).all()) and err.max().item() <= 1e-3
+        err = rel(g, w)
+        assert bool(torch.isfinite(err).all()) and err.max().item() <= tol

@@ -16,7 +16,9 @@ from torch_parity import (  # noqa: E402
     dims, headline_arrays, jax_data, mixed_batch, plant_arrays, require_cuda,
     torch_data, torch_options)
 
+from fbstab_tpu_torch.models import dense_qp as td_  # noqa: E402
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
+from fbstab_tpu_torch.models import ocp_fixtures  # noqa: E402
 from fbstab_tpu_torch.models.scaling import (  # noqa: E402
     apply_mpc_scaling, ruiz_mpc_scaling)
 from fbstab_tpu_torch.ops import mpc_solve_cuda  # noqa: E402
@@ -109,6 +111,57 @@ def test_facade_solves_one_instance_like_the_batch():
     assert float(out.solve_time) >= 0.0
     with pytest.raises(ValueError):
         tm.FBstabMpc(5, 2, 1, 6, device="cpu").solve(td)
+
+
+def _double_integrator_pair(dtype):
+    data, _ = ocp_fixtures.double_integrator(10, dtype=dtype, device="cpu")
+    data = tm.batch_data(data, 2)
+    N, nx, nu, nc = tm.mpc_dims(data)
+    z = lambda n: torch.zeros(2, n, dtype=dtype)
+    return data, (z((N + 1) * (nx + nu)), z((N + 1) * nx), z((N + 1) * nc))
+
+
+def test_riccati_is_the_sixth_positional_parameter():
+    """solve_mpc_qp_batch takes (data, z0, l0, v0, options, riccati,
+    scaling), the JAX package's order: a positional "assoc" selects the
+    associative step, bit for bit the keyword call, and not the scan."""
+    data, guess = _double_integrator_pair(torch.float64)
+    opts = Options(abs_tol=1e-8)
+    xp, cp = tm.solve_mpc_qp_batch(data, *guess, opts, "assoc")
+    xa, ca = tm.solve_mpc_qp_batch(data, *guess, opts, riccati="assoc")
+    xs, _ = tm.solve_mpc_qp_batch(data, *guess, opts, riccati="scan")
+    assert cp.eflag.tolist() == ca.eflag.tolist() == [0, 0]
+    for a, b in zip(xp, xa):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # The two steps solve the same system in another order of operations.
+    assert not torch.equal(xp.z, xs.z)
+
+
+def test_positional_riccati_in_float32_does_not_raise():
+    """The float32 product path with a positional riccati (before the
+    parameters were put in the JAX package's order, "assoc" landed in
+    `scaling` there and raised)."""
+    data, guess = _double_integrator_pair(torch.float32)
+    x, core = tm.solve_mpc_qp_batch(data, *guess,
+                                    Options.single_precision(), "assoc")
+    assert core.eflag.tolist() == [0, 0]
+    assert bool(torch.isfinite(x.to_float64().z).all())
+
+
+@pytest.mark.parametrize("facade", ["FBstabMpc", "FBstabDense"])
+def test_facade_positional_stream_reaches_the_stream_check(facade):
+    """The facades' positional parameters are the JAX facades'
+    ((N, nx, nu, nc, dtype, stream) and (nz, nl, nv, dtype, stream)): a
+    positional stream is refused as a stream, and `device` is
+    keyword-only."""
+    make = dict(FBstabMpc=lambda *a, **k: tm.FBstabMpc(4, 2, 1, 6, *a, **k),
+                FBstabDense=lambda *a, **k: td_.FBstabDense(2, 0, 2, *a,
+                                                            **k))[facade]
+    with pytest.raises(NotImplementedError, match="utils/printing.py"):
+        make(torch.float64, object(), device="cpu")
+    with pytest.raises(TypeError):
+        make(torch.float64, None, "cpu")
+    assert make(torch.float64, None, device="cpu").device.type == "cpu"
 
 
 class RecordingLib:

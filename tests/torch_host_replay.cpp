@@ -3,11 +3,14 @@
 // double-float transforms of P3 in float32): one loop
 // iteration per instance, each on the team of one, behind the C interface
 // of the CUDA library with double in place of float, in the kernels'
-// layouts (K1, K3, K5 batch-last; K2, K4 instance-major, with each
+// layouts (K3, K5 batch-last; K1, K2, K4 instance-major, with each
 // instance's stage block in a buffer of its own where the kernels keep it
-// in shared memory). K2 and K4 also run on a team of T host threads
+// in shared memory). K1, K2 and K4 also run on a team of T host threads
 // (fb_replay_set_team): the kernels' split of the work, with a barrier for
-// the tile's sync and the same xor-butterfly reductions.
+// the tile's sync and the same xor-butterfly reductions; such a team stages
+// each stage's operands as the card's teams do, or, after
+// fb_replay_set_stages(0), works in place as K1's teams do at stages too
+// large for a block's shared memory.
 // tests/test_torch_device_code.py builds it with the host compiler and
 // holds it lane for lane against the plain float64 versions of the
 // kernels.
@@ -54,9 +57,9 @@ extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
 // A team of T host threads standing in for Team<T> (fbstab_common.cuh).
 // Every exchange of values goes through a slot per thread between two
 // barriers.
-template <int T>
+template <int T, bool S>
 struct HostTeam {
-  static constexpr bool kStages = true;
+  static constexpr bool kStages = S;
   struct Shared {
     std::barrier<> bar{T};
     float slot[T];
@@ -85,35 +88,58 @@ struct HostTeam {
 };
 
 // Runs body(team) on each of T threads of one team.
-template <int T, class F>
+template <int T, bool S, class F>
 void run_team(const F& body) {
-  typename HostTeam<T>::Shared sh;
+  typename HostTeam<T, S>::Shared sh;
   std::vector<std::thread> threads;
   for (int r = 1; r < T; ++r)
-    threads.emplace_back([&sh, &body, r] { body(HostTeam<T>{&sh, r}); });
-  body(HostTeam<T>{&sh, 0});
+    threads.emplace_back([&sh, &body, r] { body(HostTeam<T, S>{&sh, r}); });
+  body(HostTeam<T, S>{&sh, 0});
   for (auto& t : threads) t.join();
 }
 
-// Runs body(team) for one instance on the team of g_team threads.
+// Runs body(team) for one instance on the team of g_team threads, which
+// stages unless g_stages is 0.
 static int g_team = 1;
+static int g_stages = 1;
+
+template <bool S, class F>
+void on_team_staging(const F& body) {
+  switch (g_team) {
+    case 2: run_team<2, S>(body); break;
+    case 4: run_team<4, S>(body); break;
+    case 8: run_team<8, S>(body); break;
+    case 16: run_team<16, S>(body); break;
+    default: run_team<32, S>(body); break;
+  }
+}
 
 template <class F>
 void on_team(const F& body) {
-  switch (g_team) {
-    case 1: body(Solo{}); break;
-    case 2: run_team<2>(body); break;
-    case 4: run_team<4>(body); break;
-    case 8: run_team<8>(body); break;
-    case 16: run_team<16>(body); break;
-    default: run_team<32>(body); break;
-  }
+  if (g_team == 1)
+    body(Solo{});
+  else if (g_stages)
+    on_team_staging<true>(body);
+  else
+    on_team_staging<false>(body);
+}
+
+// Where a team keeps its stage block: the instance's buffer `stage` if it
+// stages, its scratch w otherwise.
+template <class Tm>
+Lane stage_block(const Tm&, std::vector<float>& stage, Lane w,
+                 const MpcDims& D) {
+  return Tm::kStages ? Lane{stage.data(), 1} : w.at(ric_layout(D).stage);
 }
 
 extern "C" {
 
-// The team size K2 and K4 replay on: 1 (the default), 2, 4, ..., 32.
+// The team size K1, K2 and K4 replay on: 1 (the default), 2, 4, ..., 32.
 void fb_replay_set_team(int T) { g_team = T; }
+
+// Whether a team of more than one thread stages (1, the default) or works
+// in place (0).
+void fb_replay_set_stages(int stages) { g_stages = stages; }
 
 long long fb_riccati_ws_floats(int N, int nx, int nu, int nc) {
   return ric_layout(MpcDims{N, nx, nu, nc}).total;
@@ -127,22 +153,27 @@ int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
                     const float* rz, const float* rl, const float* rv,
                     float* dz, float* dl, float* ws) {
   const MpcDims D{N, nx, nu, nc};
+  const long long N1 = N + 1, ns = nx + nu;
+  const RicLayout o = ric_layout(D);
+  std::vector<float> stage(o.stage_floats);
   for (int b = 0; b < B; ++b) {
     MpcProb P{};
-    P.Q = lane_of(Q, B, b);
-    P.R = lane_of(R, B, b);
-    P.S = lane_of(S, B, b);
-    P.A = lane_of(A, B, b);
-    P.B = lane_of(Bm, B, b);
-    P.E = lane_of(E, B, b);
-    P.L = lane_of(L, B, b);
-    const Lane w = lane_of(ws, B, b);
-    riccati_factor_solve(Solo{}, D, sigma[b], alpha, om_alpha, P,
-                         lane_of(v, B, b), lane_of(y, B, b),
-                         lane_of(vbar, B, b), lane_of(rz, B, b),
-                         lane_of(rl, B, b), lane_of(rv, B, b),
-                         lane_of(dz, B, b), lane_of(dl, B, b), w,
-                         w.at(ric_layout(D).stage));
+    P.Q = lane_im(Q, N1 * nx * nx, b);
+    P.R = lane_im(R, N1 * nu * nu, b);
+    P.S = lane_im(S, N1 * nu * nx, b);
+    P.A = lane_im(A, (long long)N * nx * nx, b);
+    P.B = lane_im(Bm, (long long)N * nx * nu, b);
+    P.E = lane_im(E, N1 * nc * nx, b);
+    P.L = lane_im(L, N1 * nc * nu, b);
+    const Lane w = lane_im(ws, o.total, b);
+    on_team([&](const auto& tm) {
+      riccati_factor_solve(tm, D, sigma[b], alpha, om_alpha, P,
+                           lane_im(v, N1 * nc, b), lane_im(y, N1 * nc, b),
+                           lane_im(vbar, N1 * nc, b), lane_im(rz, N1 * ns, b),
+                           lane_im(rl, N1 * nx, b), lane_im(rv, N1 * nc, b),
+                           lane_im(dz, N1 * ns, b), lane_im(dl, N1 * nx, b),
+                           w, stage_block(tm, stage, w, D));
+    });
   }
   return 0;
 }
