@@ -20,17 +20,17 @@ fatal on failure:
      teams per block, registers, spill bytes, dynamic shared bytes,
      resident blocks per SM;
   5. K3 (fused dense solver) against its plain version on the equilibrated
-     bench.py dense problem (seed 1, n = 32, q = 64, nl = 0), on an
-     equality-constrained batch (n = 16, q = 32, nl = 8) and at the corner
-     of DENSE_DIMS_CAP (n = 32, q = 64, nl = 16), with Gaussian equality
-     rows;
+     bench.py dense problem (seed 1, n = 32, q = 64, nl = 0) at B = 1024
+     and at the dense path's B = 4096, on an equality-constrained batch
+     (n = 16, q = 32, nl = 8) and at the corner of DENSE_DIMS_CAP, with
+     Gaussian equality rows, with its design line;
   6. K4 (the per-subproblem kernel) against its plain version, each under
      the host outer loop of models/mpc_subfused.py, on the equilibrated
      copolymerization reactor (N = 80, B = 256), with its design line;
   7. K5 (the scan-level combine of the associative Riccati) against its
      plain version on every level of the suffix scan of one Newton step at
      the copolymerization reactor's dims (B = 256), with the float64 plain
-     version as the yardstick of float32 rounding;
+     version as the yardstick of float32 rounding, and its design line;
   8. P1, the stage-matvec probe: the bench's mxu mode (N1 = 81, n = 18,
      B = 128, T = 200), then its three kernels against their plain versions
      at T = 1 and 8, with times, library calls and bounds at T = 200;
@@ -60,9 +60,10 @@ fatal on failure:
      the copoly batch at B = 256.
 
 The next-to-last line is a JSON object describing each kernel (with its
-`design`: one thread per instance, or a team of T threads per instance on
-instance-major data; K1's row also holds each K1 shape's numbers under
-`shapes`), the last line {"ok": true, "device": {...}}.
+`design`: for K1-K5 a team of T threads per instance, or per pair and
+instance for K5, on instance-major data; K1's row also holds each K1
+shape's numbers under `shapes`, K3's its two batches'), the last line
+{"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
 
 With --k3-envelope it runs phases 1 and 2, then holds K3 against its plain
@@ -159,20 +160,22 @@ def phase_build():
           + " | ".join(usage))
 
 
-def design_line(name, source, info_fn, dims):
-    """Prints an MPC kernel's launch shape at `dims` (its C info
-    function) and its ptxas lines; returns the row's `design`."""
+def design_line(name, source, info_fn, dims, per="instance"):
+    """Prints a kernel's launch shape at `dims` (its C info function) and
+    its ptxas lines; returns the row's `design`. A team runs one `per`."""
     from fbstab_tpu_torch.ops import _build
 
     lib = _build.load_library()
     info = _build.kernel_info(getattr(lib, info_fn), *dims)
-    print(f"{name} design: a team of {info['team']} threads per instance, "
+    print(f"{name} design: a team of {info['team']} threads per {per}, "
           f"{info['teams_per_block']} teams per block; "
           f"{info['registers']} registers and {info['local_bytes']} local "
           f"bytes per thread; {info['smem_bytes']} bytes of dynamic shared "
-          f"memory per block; {info['blocks_per_sm']} resident blocks per "
+          f"memory per block"
+          + ("" if info["smem_bytes"] else " (the team works in place)")
+          + f"; {info['blocks_per_sm']} resident blocks per "
           f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source)))
-    return (f"team of {info['team']} per instance, instance-major"
+    return (f"team of {info['team']} per {per}, instance-major"
             + ("" if info["smem_bytes"] else ", stage block in device memory"))
 
 
@@ -341,27 +344,34 @@ def k3_compare(B, n, q, nl, device, kernel=None, **kw):
 
 
 def phase_k3(device):
-    """K3 against its plain version at three shapes: the bench.py dense
-    shape (its numbers go into the kernel line, and n and q are the cap's),
-    an equality-constrained shape and the corner of DENSE_DIMS_CAP."""
+    """K3 against its plain version at four shapes: the bench.py dense
+    shape (n and q are the cap's) at B = 1024 and at the dense path's
+    B = 4096 (its numbers go into the kernel line, B = 1024's under
+    `shapes`), an equality-constrained shape and the corner of
+    DENSE_DIMS_CAP; with its design line at the bench shape."""
     from fbstab_tpu_torch.models.dense_qp import DENSE_DIMS_CAP as cap
 
-    B, n, q, nl = 1024, DENSE["n"], DENSE["q"], 0
-    data, guess, (ck, max_abs, ms, plain_ms, _) = k3_compare(
-        B, n, q, nl, device)
-    flops = B * solve_flops(
-        dense_step_flops(n, q, nl), dense_residual_flops(n, q, nl),
-        ck.newton_iters.float().mean().item(),
-        ck.prox_iters.float().mean().item())
-    out_bytes = nbytes(guess[0], guess[1]) + 2 * nbytes(guess[2]) + 5 * 4 * B
-    bound_ms, bound_by = bound(flops, nbytes(*data, *guess) + out_bytes)
-    print(f"K3: bound {bound_ms:.4f} ms ({bound_by}; mean newton "
-          f"{ck.newton_iters.float().mean().item():.2f}, one linesearch "
-          f"trial each)")
+    n, q, nl = DENSE["n"], DENSE["q"], 0
+    rows = {}
+    for B in (1024, 4096):
+        data, guess, (ck, max_abs, ms, plain_ms, _) = k3_compare(
+            B, n, q, nl, device)
+        newton = ck.newton_iters.float().mean().item()
+        flops = B * solve_flops(
+            dense_step_flops(n, q, nl), dense_residual_flops(n, q, nl),
+            newton, ck.prox_iters.float().mean().item())
+        out_bytes = (nbytes(guess[0], guess[1]) + 2 * nbytes(guess[2])
+                     + 5 * 4 * B)
+        bound_ms, bound_by = bound(flops, nbytes(*data, *guess) + out_bytes)
+        print(f"K3: B={B} bound {bound_ms:.4f} ms ({bound_by}; mean newton "
+              f"{newton:.2f}, one linesearch trial each)")
+        rows[f"B={B}"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    design = design_line("K3", "dense_solve.cu", "fb_dense_solve_info",
+                         (n, q, nl))
     k3_compare(256, 16, 32, 8, device)
     k3_compare(256, cap["n"], cap["q"], cap["nl"], device)
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return dict(rows["B=4096"], library_ms=None, design=design, shapes=rows)
 
 
 def k3_envelope(device):
@@ -385,7 +395,7 @@ def k3_envelope(device):
 
 def reset_launches():
     from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
-    from fbstab_tpu_torch.ops.assoc_combine_cuda import combine_bl
+    from fbstab_tpu_torch.ops.assoc_combine_cuda import combine_im
     from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
     from fbstab_tpu_torch.ops.df_probe_cuda import df_probe
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
@@ -393,7 +403,7 @@ def reset_launches():
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     kernels = dict(K1=riccati_newton_step_batched, K2=fbstab_mpc_solve_fused,
                    K3=fbstab_dense_solve_fused, K4=mpc_subproblem_fused,
-                   K5=combine_bl, P1_perlane=p1.cuda_perlane,
+                   K5=combine_im, P1_perlane=p1.cuda_perlane,
                    P1_shared=p1.cuda_shared, P1_tc=p1.tc_shared, P3=df_probe)
     for k in kernels.values():
         k.launches = 0
@@ -605,45 +615,49 @@ def phase_k4(B, device):
 def phase_k5(B, device):
     """K5 against its plain version on every level of the suffix scan of
     one Newton step at the copolymerization reactor's dims, on iterates
-    from a few plain proximal Newton steps. The float64 plain version on the
-    same inputs shows how far float32 rounding alone moves the plain one."""
+    from a few plain proximal Newton steps, each level's operands as the
+    scan hands them (views of every other element). The float64 plain
+    version on the same inputs shows how far float32 rounding alone moves
+    the plain one."""
     from fbstab_tpu_torch.models.mpc_qp import assoc_step_inputs
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops.assoc_combine_cuda import (
-        SpanElement, combine_bl, combine_bl_plain)
+        SpanElement, combine_im, combine_im_plain)
     from fbstab_tpu_torch.ops.assoc_riccati import (
-        stage_elements_bl, suffix_values)
+        stage_elements_im, stage_major, suffix_values)
     from fbstab_tpu_torch.options import Options
 
     data = build_copoly(B, device)
     data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
     _, _, args = assoc_step_inputs(
         *newton_step_args(data, Options.single_precision()))
-    elems, _ = stage_elements_bl(*args)
+    elems, _ = stage_elements_im(*map(stage_major, args[:-1]), args[-1])
     levels = []
 
     def record(left, right):
         levels.append((left, right))
-        return combine_bl_plain(left, right)
+        return combine_im_plain(left, right)
     suffix_values(elems, combine=record)
 
     f64 = lambda e: SpanElement(*(a.double() for a in e))
-    rel = lambda g, w: ((g - w).abs().amax((0, 1, 2)[:w.ndim - 1])
-                        / (1 + w.abs().amax((0, 1, 2)[:w.ndim - 1])))
+    # Per lane (axis 1): the max over the pairs and the block's entries.
+    lanes = lambda a: (0, 2, 3)[:a.ndim - 1]
+    rel = lambda g, w: ((g - w).abs().amax(lanes(w))
+                        / (1 + w.abs().amax(lanes(w))))
     worst_k5, worst_f32, max_abs = 0.0, 0.0, 0.0
     for left, right in levels:
-        got = combine_bl(left, right)
-        want = combine_bl_plain(left, right)
-        ref = combine_bl_plain(f64(left), f64(right))
+        got = combine_im(left, right)
+        want = combine_im_plain(left, right)
+        ref = combine_im_plain(f64(left), f64(right))
         for g, w, w64 in zip(got, want, ref):
             worst_k5 = max(worst_k5, rel(g, w).max().item())
             worst_f32 = max(worst_f32, rel(w.double(), w64).max().item())
             max_abs = max(max_abs, (g - w).abs().max().item())
     left, right = levels[0]                  # the widest level
-    M, n = left.P11.shape[0], left.P11.shape[1]
-    ms = cuda_ms(lambda: combine_bl(left, right), 5)
-    plain_ms = cuda_ms(lambda: combine_bl_plain(left, right), 3)
+    M, n = left.P11.shape[0], left.P11.shape[-1]
+    ms = cuda_ms(lambda: combine_im(left, right), 5)
+    plain_ms = cuda_ms(lambda: combine_im_plain(left, right), 3)
     bound_ms, bound_by = bound(M * B * combine_flops(n),
                                nbytes(*left, *right) + nbytes(*left))
     print(f"K5: copoly n={n} B={B}, {len(levels)} scan levels, widest M={M}:"
@@ -651,10 +665,13 @@ def phase_k5(B, device):
           f"plain vs float64 plain {worst_f32:.3e}; max abs err "
           f"{max_abs:.3e} | widest level: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    design = design_line("K5", "assoc_combine.cu", "fb_combine_info", (n,),
+                         per="pair and instance")
     if not np.isfinite(worst_k5) or worst_k5 > K5_TOL:
         fail("K5 disagrees with its plain version")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                design=design)
 
 
 def phase_copoly(B, device):
@@ -982,7 +999,6 @@ def main():
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
                  mpc_warmstart=n_warm)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
-    ONE = "one thread per instance"
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
              source="fbstab_tpu_torch/csrc/riccati.cu",
@@ -996,17 +1012,15 @@ def main():
         dict(name="fbstab_dense_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/dense_solve.cu",
              replaces="fbstab_tpu/ops/dense_solve_pallas.py:421",
-             launches=n_dense["K3"], launches_by_path=by_path("K3"),
-             design=ONE, **k3),
+             launches=n_dense["K3"], launches_by_path=by_path("K3"), **k3),
         dict(name="mpc_subproblem_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_subproblem.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1347",
              launches=n_copoly["K4"], launches_by_path=by_path("K4"), **k4),
-        dict(name="combine_bl", route="cuda",
+        dict(name="combine_im", route="cuda",
              source="fbstab_tpu_torch/csrc/assoc_combine.cu",
              replaces="fbstab_tpu/ops/assoc_riccati.py:388",
-             launches=n_assoc["K5"], launches_by_path=by_path("K5"),
-             design=ONE, **k5),
+             launches=n_assoc["K5"], launches_by_path=by_path("K5"), **k5),
     ] + [
         dict(name=f"mxu_probe_{form}", route="cuda",
              source="fbstab_tpu_torch/csrc/mxu_probe.cu",

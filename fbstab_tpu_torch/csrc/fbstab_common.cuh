@@ -1,16 +1,15 @@
 // Shared definitions of the FBstab CUDA kernels.
 //
 // A `Lane` is the view of one instance's array: element k at p[k * s].
-// K3 and K5 keep every per-instance array batch-last (s = B: element k
-// of instance b at k * B + b, so the 32 threads of a warp, 32 consecutive
-// instances, touch 32 consecutive floats). K1, K2 and K4 keep them
-// instance-major (s = 1: element k of instance b at b * n + k, the
-// batch-first layout torch holds, so the threads of one instance's team
-// touch consecutive floats).
+// Every kernel keeps its per-instance arrays instance-major (s = 1:
+// element k of instance b at b * n + k, the batch-first layout torch
+// holds, so the threads of one instance's team touch consecutive floats);
+// a stride s = n views a column of a row-major n x n block (fb_col).
 //
-// A team is the group of threads that runs one instance: `Solo`, one
-// thread (K3, and the host replay's team of one), or `Team<T>`, a
-// thread_block_tile of T threads (K1, K2, K4). Work split over a team goes
+// A team is the group of threads that runs one instance (one pair and
+// instance, K5): `Solo`, one thread (the host replay's team of one), or
+// `Team<T>`, a thread_block_tile of T threads (K1-K5), or a thread that
+// solves alone inside a team's phase. Work split over a team goes
 // round-robin: thread `rank` takes items rank, rank + size, ... Every
 // reduction is an xor butterfly, which leaves the same bits on every
 // thread, so a team's control flow never diverges.
@@ -44,11 +43,6 @@ struct Lane {
 // Column j of the n x n row-major block X, as a vector.
 FB_DEV Lane fb_col(Lane X, int n, int j) {
   return Lane{X.p + (long long)j * X.s, X.s * n};
-}
-
-// Batch-last: element k of instance b at k * B + b.
-FB_DEV Lane lane_of(const float* base, long long B, long long b) {
-  return Lane{const_cast<float*>(base) + b, (int)B};
 }
 
 // Instance-major: element k of instance b at b * n + k.

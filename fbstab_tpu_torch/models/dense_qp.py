@@ -224,13 +224,17 @@ DENSE_OPS = ProblemOps(
 # The cap is the box, inside the JAX package's gate (n <= 64, q <= 128,
 # nl <= 64), whose corner K3 passes against its plain version with
 # Gaussian equality rows and where it is the faster of the two
-# (`chip_smoke.py --k3-envelope`; chip_smoke.py checks the corner on every
-# run). From n = 48 on, the one-thread-per-instance kernel is slower than
-# the plain version; at nl = n the rows fix z and the two float32 solvers
-# part on ill-conditioned lanes.
+# (`chip_smoke.py --k3-envelope`, B = 256, on an H100 80GB HBM3 at 700 W;
+# chip_smoke.py checks the corner on every run). With a warp per
+# instance, K3 passes at n = 64, q = 128 with nl = 0 and nl = 32, in 4.2
+# and 9.2 ms against the plain version's 90.3 and 149.6 ms; at nl = n
+# (n = 32, nl = 32 and the gate's corner n = 64, nl = 64) the rows fix z
+# and the two float32 solvers part in Newton counts on ill-conditioned
+# lanes (in float64 the replayed device code takes the plain solver's
+# decisions there, tests/test_torch_device_code.py), so nl stops at 32.
 # ------------------------------------------------------------------
 
-DENSE_DIMS_CAP = dict(n=32, q=64, nl=16)
+DENSE_DIMS_CAP = dict(n=64, q=128, nl=32)
 
 
 def _solve_dense_qp_batch_raw(data: DenseQPData, z0, l0, v0,

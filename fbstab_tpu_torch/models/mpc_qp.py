@@ -468,51 +468,50 @@ MPC_PLAIN_OPS = MPC_OPS._replace(newton_step=_newton_step_op(_fused_step_impl))
 # horizons on. On the CPU: the JAX package's CPU crossover (float64, double
 # integrator). On CUDA: the crossover measured on an H100 80GB HBM3 at
 # 700 W in float32 on the double integrator (`chip_smoke.py
-# --assoc-crossover`, the two solves in turns, best of 7; PERF.md), scan /
+# --assoc-crossover`, the two solves in turns, best of 7; PERF.md), with
+# the combine a warp per (pair, instance) on instance-major spans; scan /
 # assoc in ms in two runs:
-#     N = 240    585 / 1109    534 / 1146
-#     N = 360    916 / 1293    965 / 1551
-#     N = 480   1227 / 1442   1310 / 1776
-#     N = 600   1396 / 1438   1549 / 1747
-#     N = 720   1853 / 1916   1813 / 2267
-#     N = 960   1981 / 1460   2265 / 2236
-# Both paths are host-bound; the associative step wins from N = 960 on.
+#     N = 240    489 /  805    498 /  779
+#     N = 360    865 / 1170    831 / 1122
+#     N = 480   1252 / 1655   1069 / 1010
+#     N = 600   1400 / 1578   1349 / 1575
+#     N = 720   1520 / 1162   1481 / 1099
+#     N = 960   1923 / 1402   1933 / 1348
+# Both paths are host-bound; the associative step wins from N = 720 on in
+# both runs.
 ASSOC_MIN_HORIZON = 192
-ASSOC_MIN_HORIZON_CUDA = 960
+ASSOC_MIN_HORIZON_CUDA = 720
 
 
 def assoc_step_inputs(d, v, y, vbar, rz, rl, rv, sigma, alpha):
-    """The inputs of the associative solve for one batched Newton step:
-    the PFB weights (gamma, mus) batch-first, and the stage Hessians, A, B,
-    r1 = rz - A'(rv ./ mus) and rl batch-last, in the argument order of
-    ops.assoc_riccati.assoc_kkt_solve_bl (sigma last)."""
+    """The inputs of the associative solve for one batched Newton step,
+    batch-first: the PFB weights (gamma, mus), and the stage Hessians, A,
+    B, r1 = rz - A'(rv ./ mus) and rl, in the argument order of
+    ops.assoc_riccati.assoc_kkt_solve_im (sigma last)."""
     N, nx, nu, nc = mpc_dims(d)
     Bq = v.shape[0]
     gamma, mus, Gam = pfb_weights(y, v, vbar, _lane_sigma(sigma, v), alpha)
     Qh, Rh, Sh = _stage_hessians(d, Gam, sigma)
     r1 = (rz - _gemvAT(d, rv / mus)).reshape(Bq, N + 1, nx + nu)
-    last = lambda a: a.permute(*range(1, a.ndim), 0)     # (B, ...) -> (..., B)
-    args = (last(Qh), last(Rh), last(Sh), last(d.A), last(d.B),
-            last(r1[..., :nx]), last(r1[..., nx:]),
-            last(rl.reshape(Bq, N + 1, nx)), sigma)
+    args = (Qh, Rh, Sh, d.A, d.B, r1[..., :nx], r1[..., nx:],
+            rl.reshape(Bq, N + 1, nx), sigma)
     return gamma, mus, args
 
 
 def _assoc_step_batched(d, v, y, vbar, rz, rl, rv, sigma, alpha):
     """Batched associative-Riccati Newton step (`_assoc_step_batched` in
-    the JAX package): PFB weights, stage Hessians and r1 batch-first, the
-    span algebra batch-last. sigma: scalar or per-lane (B,). Returns
-    (dz, dl, dv, dy, ok) with ok = finite (dz, dl)."""
-    from fbstab_tpu_torch.ops.assoc_riccati import assoc_kkt_solve_bl
+    the JAX package, whose span algebra is batch-last; here it is
+    instance-major). sigma: scalar or per-lane (B,). Returns (dz, dl, dv,
+    dy, ok) with ok = finite (dz, dl)."""
+    from fbstab_tpu_torch.ops.assoc_riccati import assoc_kkt_solve_im
 
     Bq = v.shape[0]
     exact_f32_matmul(v)
     gamma, mus, args = assoc_step_inputs(d, v, y, vbar, rz, rl, rv, sigma,
                                          alpha)
-    xs, us, lams = assoc_kkt_solve_bl(*args)
-    first = lambda a: a.permute(a.ndim - 1, *range(a.ndim - 1))
-    dz = torch.cat([first(xs), first(us)], -1).reshape(Bq, -1)
-    dl = first(lams).reshape(Bq, -1)
+    xs, us, lams = assoc_kkt_solve_im(*args)
+    dz = torch.cat([xs, us], -1).reshape(Bq, -1)
+    dl = lams.reshape(Bq, -1)
     Adz = _gemvA(d, dz)
     dv = (rv + gamma * Adz) / mus
     dy = _b_vec(d) - Adz

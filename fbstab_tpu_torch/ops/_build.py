@@ -134,10 +134,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.fb_riccati_info):
         fn.argtypes = [I, I, I, I, P]
         fn.restype = I
-    lib.fb_combine_ws_floats.argtypes = [I]
-    lib.fb_combine_ws_floats.restype = ctypes.c_longlong
+    lib.fb_combine_info.argtypes = [I, P]
+    lib.fb_combine_info.restype = I
     lib.fb_assoc_combine.argtypes = [I, I, I] + [P] * 16 + [P]
     lib.fb_assoc_combine.restype = I
+    lib.fb_dense_solve_info.argtypes = [I, I, I, P]
+    lib.fb_dense_solve_info.restype = I
     lib.fb_mxu_max_n.argtypes = []
     lib.fb_mxu_max_n.restype = I
     lib.fb_mxu_probe.argtypes = [I, I, I, I, I, F] + [P] * 3 + [P]
@@ -146,12 +148,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def kernel_info(fn, N, nx, nu, nc) -> dict:
-    """An MPC kernel's launch shape at these dims, from its C info
-    function (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
-    `lib.fb_riccati_info`)."""
+def kernel_info(fn, *dims) -> dict:
+    """A kernel's launch shape at these dims, from its C info function
+    (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
+    `lib.fb_riccati_info` at (N, nx, nu, nc), `lib.fb_dense_solve_info` at
+    (n, q, nl), `lib.fb_combine_info` at n)."""
     info = (ctypes.c_int * 6)()
-    check(fn(N, nx, nu, nc, info), "kernel info")
+    check(fn(*dims, info), "kernel info")
     return dict(zip(("team", "teams_per_block", "registers", "local_bytes",
                      "smem_bytes", "blocks_per_sm"), info))
 

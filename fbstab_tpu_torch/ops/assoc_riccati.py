@@ -1,5 +1,5 @@
 """Parallel-in-horizon (associative-scan) Riccati Newton-step solver,
-batch last (counterpart of `fbstab_tpu/ops/assoc_riccati.py`, its
+instance-major (counterpart of `fbstab_tpu/ops/assoc_riccati.py`, its
 `assoc_kkt_solve_bl`).
 
 It solves the sigma-regularized LQ saddle system of the sequential
@@ -16,8 +16,13 @@ Riccati recursion (models/mpc_qp.py::_riccati_solve) in O(log N) depth:
    associative scan of affine maps, then u and lambda are recovered
    stage-batched.
 
-Every array is stage-stacked with the batch last: (S, n, m, B) matrices,
-(S, n, B) vectors. The same algebraic solution as the sequential
+The solve takes and returns batch-first arrays, (B, N+1, ...), and works
+stage-stacked with the batch second, (S, B, n, m) matrices and (S, B, n)
+vectors, from the stage elements through the scans to the rollout: one
+layout change at the entry and one at the exit, none per level, and each
+(stage, instance) block contiguous for K5. The JAX package keeps the batch
+last ((S, n, m, B)); `stage_elements_im` is the first part of its
+`_assoc_kkt_solve_bl`. The same algebraic solution as the sequential
 recursion in another order of operations, so the two agree to roundoff.
 """
 
@@ -26,8 +31,8 @@ from __future__ import annotations
 import torch
 
 from fbstab_tpu_torch.ops.assoc_combine_cuda import (
-    COMBINE_MAX_N, SpanElement, _mm_bl, _mv_bl, _T_bl, combine_bl,
-    combine_bl_plain, psolve_bl)
+    COMBINE_MAX_N, SpanElement, _mv, _T, combine_im, combine_im_plain,
+    psolve_im)
 
 
 def _map(f, *trees):
@@ -43,8 +48,8 @@ def associative_scan(fn, elems, reverse: bool = False):
     combine adjacent pairs, scan the reduced sequence, fill the even
     positions, interleave. With `reverse` the sequence is flipped first and
     the result flipped back, so `fn(a, b)` then receives the later element
-    as `a`. Every level is one call of `fn` over all its pairs; empty
-    slices are not combined."""
+    as `a`. Every level is one call of `fn` over all its pairs, on views
+    of every other element (no copy); empty slices are not combined."""
     if reverse:
         elems = _map(lambda a: torch.flip(a, (0,)), elems)
 
@@ -77,54 +82,56 @@ def _combine_level(left: SpanElement, right: SpanElement) -> SpanElement:
     COMBINE_MAX_N), the plain algebra otherwise (as the JAX package sends
     only float32 TPU batches to its Pallas kernel)."""
     x = left.P11
-    if x.is_cuda and x.dtype == torch.float32 and x.shape[1] <= COMBINE_MAX_N:
-        return combine_bl(left, right)
-    return combine_bl_plain(left, right)
+    if x.is_cuda and x.dtype == torch.float32 and x.shape[-1] <= COMBINE_MAX_N:
+        return combine_im(left, right)
+    return combine_im_plain(left, right)
 
 
-def _lane(sigma, like, ndim):
-    """1 / sigma for a scalar or a per-lane (B,) sigma, shaped to broadcast
-    against batch-last arrays of `ndim` dims."""
-    sig = torch.as_tensor(sigma, dtype=like.dtype, device=like.device)
-    inv = 1.0 / sig
-    return inv if inv.ndim == 0 else inv.reshape((1,) * (ndim - 1) + (-1,))
+def _lane(sigma, like, shape):
+    """1 / sigma for a scalar or a per-lane (B,) sigma, the latter reshaped
+    to `shape` (its batch axis -1) to broadcast against instance-major
+    arrays."""
+    inv = 1.0 / torch.as_tensor(sigma, dtype=like.dtype, device=like.device)
+    return inv if inv.ndim == 0 else inv.reshape(shape)
 
 
-def stage_elements_bl(Qh, Rh, Sh, A, B, r1x, r1u, rl, sigma):
-    """The N stage elements and the terminal one, (N+1, ...) batch last:
-    stage i eliminates u_i from its cost plus the sigma-relaxed dynamics
-    penalty linking x_i to x_{i+1} (u-Hessian K_u = Rh + B'B / sigma); the
-    terminal element eliminates u_N from the stage-N cost alone. Returns
-    (elems, aux), aux = (Ku, D, g, KiS, Kir) for the recovery of u."""
-    N1, nx, Bb = Qh.shape[0], Qh.shape[1], Qh.shape[-1]
+def stage_elements_im(Qh, Rh, Sh, A, B, r1x, r1u, rl, sigma):
+    """The N stage elements and the terminal one, (N+1, B, ...): stage i
+    eliminates u_i from its cost plus the sigma-relaxed dynamics penalty
+    linking x_i to x_{i+1} (u-Hessian K_u = Rh + B'B / sigma); the terminal
+    element eliminates u_N from the stage-N cost alone. Takes the solve's
+    arrays stage-stacked, (N+1, B, ...) and (N, B, ...). Returns (elems,
+    aux), aux = (Ku, D, g, KiS, Kir) for the recovery of u."""
+    N1, Bb, nx = Qh.shape[0], Qh.shape[1], Qh.shape[2]
     N = N1 - 1
     dtype, dev = Qh.dtype, Qh.device
-    sb4, sb3 = _lane(sigma, Qh, 4), _lane(sigma, Qh, 3)
+    sb4 = _lane(sigma, Qh, (1, -1, 1, 1))
+    sb3 = _lane(sigma, Qh, (1, -1, 1))
     Qs, Rs, Ss = Qh[:-1], Rh[:-1], Sh[:-1]
     ct = rl[1:]
-    BT, AT = _T_bl(B), _T_bl(A)
-    Ku = Rs + sb4 * _mm_bl(BT, B)
-    D = Ss + sb4 * _mm_bl(BT, A)
-    g = sb3 * _mv_bl(BT, ct) - r1u[:-1]
+    BT, AT = _T(B), _T(A)
+    Ku = Rs + sb4 * (BT @ B)
+    D = Ss + sb4 * (BT @ A)
+    g = sb3 * _mv(BT, ct) - r1u[:-1]
 
-    KiD = psolve_bl(Ku, D)
-    KiBT = psolve_bl(Ku, BT)
-    Kig = psolve_bl(Ku, g)
+    KiD = psolve_im(Ku, D)
+    KiBT = psolve_im(Ku, BT)
+    Kig = psolve_im(Ku, g)
 
-    DT = _T_bl(D)
-    P11 = Qs + sb4 * _mm_bl(AT, A) - _mm_bl(DT, KiD)
-    P12 = -sb4 * AT + sb4 * _mm_bl(DT, KiBT)
-    Ix = torch.eye(nx, dtype=dtype, device=dev)[None, :, :, None]
-    P22 = sb4 * Ix.expand(N, nx, nx, Bb) - (sb4 * sb4) * _mm_bl(B, KiBT)
-    p1 = -r1x[:-1] + sb3 * _mv_bl(AT, ct) - _mv_bl(DT, Kig)
-    p2 = -sb3 * ct + sb3 * _mv_bl(B, Kig)
+    DT = _T(D)
+    P11 = Qs + sb4 * (AT @ A) - DT @ KiD
+    P12 = -sb4 * AT + sb4 * (DT @ KiBT)
+    Ix = torch.eye(nx, dtype=dtype, device=dev)
+    P22 = sb4 * Ix - (sb4 * sb4) * (B @ KiBT)
+    p1 = -r1x[:-1] + sb3 * _mv(AT, ct) - _mv(DT, Kig)
+    p2 = -sb3 * ct + sb3 * _mv(B, Kig)
 
-    KiS = psolve_bl(Rh[N:], Sh[N:])[0]
-    Kir = psolve_bl(Rh[N:], r1u[N:])[0]
-    P11N = Qh[N] - torch.einsum("jib,jkb->ikb", Sh[N], KiS)
-    p1N = -r1x[N] + torch.einsum("jib,jb->ib", Sh[N], Kir)
-    zm = torch.zeros((1, nx, nx, Bb), dtype=dtype, device=dev)
-    zv = torch.zeros((1, nx, Bb), dtype=dtype, device=dev)
+    KiS = psolve_im(Rh[N], Sh[N])
+    Kir = psolve_im(Rh[N], r1u[N])
+    P11N = Qh[N] - _T(Sh[N]) @ KiS
+    p1N = -r1x[N] + _mv(_T(Sh[N]), Kir)
+    zm = torch.zeros((1, Bb, nx, nx), dtype=dtype, device=dev)
+    zv = torch.zeros((1, Bb, nx), dtype=dtype, device=dev)
     elems = SpanElement(
         P11=torch.cat([P11, P11N[None]]), P12=torch.cat([P12, zm]),
         P22=torch.cat([P22, zm]), p1=torch.cat([p1, p1N[None]]),
@@ -141,43 +148,49 @@ def suffix_values(elems: SpanElement, combine=None) -> SpanElement:
     return associative_scan(lambda a, b: combine(b, a), elems, reverse=True)
 
 
-def assoc_kkt_solve_bl(Qh, Rh, Sh, A, B, r1x, r1u, rl, sigma):
-    """Parallel solve of the regularized LQ saddle system, batch last.
+def stage_major(a):
+    """(B, S, ...) <-> (S, B, ...), a view."""
+    return a.transpose(0, 1)
 
-    Qh, Rh, Sh (N+1, nx|nu, ., B): the barrier-augmented Hessian blocks;
-    A, B (N, nx, ., B); r1x, r1u (N+1, ., B) the stationarity residual; rl
-    (N+1, nx, B) the equality residual; sigma a scalar or per-lane (B,).
-    Returns (xs, us, lams), each (N+1, ., B)."""
-    N, nx = Qh.shape[0] - 1, Qh.shape[1]
+
+def assoc_kkt_solve_im(Qh, Rh, Sh, A, B, r1x, r1u, rl, sigma):
+    """Parallel solve of the regularized LQ saddle system, batch first.
+
+    Qh, Rh, Sh (B, N+1, nx|nu, .): the barrier-augmented Hessian blocks;
+    A, B (B, N, nx, .); r1x, r1u (B, N+1, .) the stationarity residual; rl
+    (B, N+1, nx) the equality residual; sigma a scalar or per-lane (B,).
+    Returns (xs, us, lams), each (B, N+1, .)."""
+    Qh, Rh, Sh, A, B, r1x, r1u, rl = map(
+        stage_major, (Qh, Rh, Sh, A, B, r1x, r1u, rl))
+    N, nx = Qh.shape[0] - 1, Qh.shape[2]
     dtype, dev = Qh.dtype, Qh.device
-    sb3, sb2 = _lane(sigma, Qh, 3), _lane(sigma, Qh, 2)
-    elems, (Ku, D, g, KiS, Kir) = stage_elements_bl(
+    sb3 = _lane(sigma, Qh, (1, -1, 1))
+    sbm, sbv = _lane(sigma, Qh, (-1, 1, 1)), _lane(sigma, Qh, (-1, 1))
+    elems, (Ku, D, g, KiS, Kir) = stage_elements_im(
         Qh, Rh, Sh, A, B, r1x, r1u, rl, sigma)
     suff = suffix_values(elems)
     J, p = suff.P11, suff.p1
 
     # ---- x0 and the forward rollout ----
-    Ix0 = torch.eye(nx, dtype=dtype, device=dev)[:, :, None]
-    x0 = psolve_bl((sb3 * Ix0 + J[0])[None], (sb2 * rl[0] - p[0])[None])[0]
+    Ix0 = torch.eye(nx, dtype=dtype, device=dev)
+    x0 = psolve_im(sbm * Ix0 + J[0], sbv * rl[0] - p[0])
     Kf = elems.P22[:N] + J[1:]
-    Phi = psolve_bl(Kf, -_T_bl(elems.P12[:N]))
-    c = psolve_bl(Kf, -(elems.p2[:N] + p[1:]))
+    Phi = psolve_im(Kf, -_T(elems.P12[:N]))
+    c = psolve_im(Kf, -(elems.p2[:N] + p[1:]))
 
     def aff_op(f, s):
         # Composition of affine maps, the earlier one applied first.
-        return (_mm_bl(s[0], f[0]), _mv_bl(s[0], f[1]) + s[1])
+        return (s[0] @ f[0], _mv(s[0], f[1]) + s[1])
 
     Ms, cs = associative_scan(aff_op, (Phi, c))
-    x_tail = torch.einsum("sijb,jb->sib", Ms, x0) + cs
-    xs = torch.cat([x0[None], x_tail])
+    xs = torch.cat([x0[None], _mv(Ms, x0) + cs])
 
     # ---- recovery of u and lambda ----
-    rhs_u = _mv_bl(D, xs[:-1]) - sb3 * _mv_bl(_T_bl(B), xs[1:]) + g
-    us_head = -psolve_bl(Ku, rhs_u)
-    uN = Kir - torch.einsum("ijb,jb->ib", KiS, xs[N])
+    rhs_u = _mv(D, xs[:-1]) - sb3 * _mv(_T(B), xs[1:]) + g
+    us_head = -psolve_im(Ku, rhs_u)
+    uN = Kir - _mv(KiS, xs[N])
     us = torch.cat([us_head, uN[None]])
-    lam0 = sb2 * (rl[0] - xs[0])
-    lam_tail = sb3 * (rl[1:] + _mv_bl(A, xs[:-1]) + _mv_bl(B, us[:-1])
-                      - xs[1:])
+    lam0 = sbv * (rl[0] - xs[0])
+    lam_tail = sb3 * (rl[1:] + _mv(A, xs[:-1]) + _mv(B, us[:-1]) - xs[1:])
     lams = torch.cat([lam0[None], lam_tail])
-    return xs, us, lams
+    return stage_major(xs), stage_major(us), stage_major(lams)

@@ -5,8 +5,8 @@ Counterpart of `fbstab_tpu/ops/dense_solve_pallas.py::
 fbstab_dense_solve_fused`: one launch runs the whole algorithm (outer
 proximal loop, inner Newton loop on the quasi-definite block step,
 nonmonotone linesearch, infeasibility checks, exit flags) for every
-instance, one thread per instance, on the loop K2 shares
-(csrc/fbstab_solve.cuh).
+instance, a team of threads per instance on the batch-first (instance-major)
+tensors as torch holds them, on the loop K2 shares (csrc/fbstab_solve.cuh).
 
 The kernel's Newton step reports failure as a NaN in (dz, dl), as the
 Pallas kernel does; the plain step reports it as a non-finite factor
@@ -30,12 +30,6 @@ from fbstab_tpu_torch.ops.riccati_cuda import _check_f32
 from fbstab_tpu_torch.options import Options
 
 
-def to_batch_last(a: torch.Tensor) -> torch.Tensor:
-    """(B, ...) -> contiguous (rows, B): element k of instance b at
-    k * B + b, the layout of K3's arrays."""
-    return a.reshape(a.shape[0], -1).t().contiguous()
-
-
 def fbstab_dense_solve_plain(data, z0, l0, v0, options: Options):
     """The plain PyTorch version of K3: returns (Variable, CoreOut)."""
     from fbstab_tpu_torch.core.algorithm import fbstab_solve_batch
@@ -51,9 +45,9 @@ def _within_cap(n, q, nl) -> bool:
 
 
 def launch_dense_solve(lib, data, z0, l0, v0, options: Options, stream: int):
-    """Lays the inputs out batch-last, allocates outputs and scratch, and
-    launches K3 from `lib` at any size (DENSE_DIMS_CAP is the caller's
-    policy). Returns batch-first (Variable, CoreOut)."""
+    """Allocates outputs and scratch and launches K3 from `lib` on the
+    contiguous batch-first float32 tensors, at any size (DENSE_DIMS_CAP is
+    the caller's policy). Returns batch-first (Variable, CoreOut)."""
     n, q, nl = data.H.shape[-1], data.A.shape[-2], data.G.shape[-2]
     B = z0.shape[0]
     dev = z0.device
@@ -66,28 +60,22 @@ def launch_dense_solve(lib, data, z0, l0, v0, options: Options, stream: int):
         if tuple(t.shape) != (B, k):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {(B, k)}")
-    ins = [to_batch_last(a) for a in data] + [
-        to_batch_last(a) for a in (z0, l0, v0)]
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    z = torch.empty(n, B, **f32)
-    l = torch.empty(nl, B, **f32)
-    v = torch.empty(q, B, **f32)
-    y = torch.empty(q, B, **f32)
+    x = Variable(z=torch.empty(B, n, **f32), l=torch.empty(B, nl, **f32),
+                 v=torch.empty(B, q, **f32), y=torch.empty(B, q, **f32))
     eflag = torch.empty(B, **i32)
     res = torch.empty(B, **f32)
     newton = torch.empty(B, **i32)
     prox = torch.empty(B, **i32)
     res0 = torch.empty(B, **f32)
-    ws = torch.empty(lib.fb_dense_ws_floats(n, q, nl), B, **f32)
-    outs = (z, l, v, y, eflag, res, newton, prox, res0, ws)
+    ws = torch.empty(B, lib.fb_dense_ws_floats(n, q, nl), **f32)
+    outs = (*x, eflag, res, newton, prox, res0, ws)
     err = lib.fb_dense_solve(n, q, nl, B, solve_opts(options),
-                             *[a.data_ptr() for a in ins],
+                             *[a.data_ptr() for a in (*data, z0, l0, v0)],
                              *[a.data_ptr() for a in outs], stream)
     from fbstab_tpu_torch.ops._build import check
     check(err, "fbstab_dense_solve")
-    x = Variable(z=z.t().contiguous(), l=l.t().contiguous(),
-                 v=v.t().contiguous(), y=y.t().contiguous())
     core = CoreOut(eflag=eflag, residual=res, newton_iters=newton,
                    prox_iters=prox, initial_residual=res0, raw_residual=res,
                    refine_steps=torch.zeros_like(eflag))

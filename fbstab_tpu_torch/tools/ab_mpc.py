@@ -1,4 +1,5 @@
-"""Times the MPC kernels and paths of given source trees on one GPU.
+"""Times the MPC and dense kernels and paths of given source trees on one
+GPU.
 
     python3 fbstab_tpu_torch/tools/ab_mpc.py TREE [TREE ...]
 
@@ -13,6 +14,15 @@ Options.single_precision():
     five calls after a warm one;
   - k2_ms: K2 on the equilibrated headline batch at B = 1024 (CUDA events,
     three launches after a warm one);
+  - k5_ms: K5 (the scan-level combine) at the widest level of the suffix
+    scan of one Newton step on the equilibrated copolymerization reactor at
+    B = 256 (M = 40 pairs), its operands as the scan hands them (CUDA
+    events, five launches after a warm one);
+  - k3_ms_1024, k3_ms_4096: K3 on the equilibrated bench dense batch
+    (n = 32, q = 64) at B = 1024 and 4096 (CUDA events, three launches
+    after a warm one);
+  - dense_qps: the dense path, solve_dense_qp_batch at B = 4096 (best of
+    three calls after a warm one);
   - main_qps: the one-shot solve_mpc_qp_batch at B = 8192 (best of three
     calls after a warm one);
   - adaptive_qps: the adaptive headline
@@ -29,11 +39,11 @@ Options.single_precision():
   - longhorizon_ms: the single-instance solve_mpc_qp on the double
     integrator with riccati="scan" and "assoc" at N = 120, 240, 480 (best
     of three after a warm one);
-  - K1's, K2's and K4's registers and spill bytes from the tree's build
-    log.
+  - K1's to K5's registers and spill bytes from the tree's build log.
 Pass a checkout of the parent and of the change as A B B A to compare them
 in turns on one card; copies of one tree that differ in one constant, to
-weigh it.
+weigh it. K5's inputs are built with the tree's own scan, whose spans are
+batch-last in trees before the instance-major K5 (`k5_widest_level`).
 """
 
 from __future__ import annotations
@@ -68,10 +78,39 @@ def k1_inputs(data, seed=5):
     return (*(t(a) for a in (v, y, vbar, rz, rl, rv)), 3e-4, 0.95)
 
 
+def k5_widest_level(data):
+    """The operands of the widest level of the suffix scan of one Newton
+    step on `data`, as the tree's scan hands them to its combine; and that
+    combine (K5's wrapper)."""
+    from fbstab_tpu_torch.models.mpc_qp import assoc_step_inputs
+    from fbstab_tpu_torch.ops import assoc_combine_cuda as k5
+    from fbstab_tpu_torch.ops import assoc_riccati as ar
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.workloads import newton_step_args
+
+    _, _, args = assoc_step_inputs(
+        *newton_step_args(data, Options.single_precision()))
+    if hasattr(ar, "stage_major"):
+        elems, _ = ar.stage_elements_im(*map(ar.stage_major, args[:-1]),
+                                        args[-1])
+        combine, plain = k5.combine_im, k5.combine_im_plain
+    else:
+        elems, _ = ar.stage_elements_bl(*args)
+        combine, plain = k5.combine_bl, k5.combine_bl_plain
+    levels = []
+
+    def record(left, right):
+        levels.append((left, right))
+        return plain(left, right)
+    ar.suffix_values(elems, combine=record)
+    return combine, levels[0]
+
+
 def measure(tree: str) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
 
+    from fbstab_tpu_torch.models.dense_qp import solve_dense_qp_batch
     from fbstab_tpu_torch.models.mpc_qp import (
         MpcQPData, solve_mpc_qp, solve_mpc_qp_batch)
     from fbstab_tpu_torch.models.mpc_subfused import (
@@ -79,15 +118,18 @@ def measure(tree: str) -> dict:
     from fbstab_tpu_torch.models.ocp_fixtures import double_integrator
     from fbstab_tpu_torch.models.receding_horizon import simulate_batch
     from fbstab_tpu_torch.models.scaling import (
-        apply_mpc_scaling, ruiz_mpc_scaling)
+        apply_dense_scaling, apply_mpc_scaling, ruiz_dense_scaling,
+        ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops import _build
+    from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     from fbstab_tpu_torch.options import Options
     from fbstab_tpu_torch.parallel.adaptive import (
         solve_mpc_qp_batch_adaptive_device)
     from fbstab_tpu_torch.workloads import (
-        HEADLINE, build_batch, build_copoly, cuda_ms, timed, zeros_guess)
+        DENSE, HEADLINE, build_batch, build_copoly, build_dense, cuda_ms,
+        dense_zeros, timed, zeros_guess)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -119,7 +161,20 @@ def measure(tree: str) -> dict:
     row["warmstart_qps"] = 8 * 8192e3 / best(
         lambda: simulate_batch(shared, 8, data.x0, opts), 2)
 
+    for B in (1024, 4096):
+        data = build_dense(B, DENSE["n"], DENSE["q"], 0, dev)
+        data = apply_dense_scaling(data, ruiz_dense_scaling(data))
+        guess = dense_zeros(data)
+        row[f"k3_ms_{B}"] = cuda_ms(
+            lambda: fbstab_dense_solve_fused(data, *guess, opts), 3)
+    data = build_dense(4096, DENSE["n"], DENSE["q"], 0, dev)
+    guess = dense_zeros(data)
+    row["dense_qps"] = 4096e3 / best(
+        lambda: solve_dense_qp_batch(data, *guess, opts), 3)
+
     data = equilibrated(build_copoly(256, dev))
+    combine, (left, right) = k5_widest_level(data)
+    row["k5_ms"] = cuda_ms(lambda: combine(left, right), 5)
     guess = zeros_guess(data)
     row["k4_ms"] = cuda_ms(
         lambda: fbstab_mpc_solve_subfused(data, *guess, opts), 1)
@@ -161,7 +216,9 @@ def main():
         log = Path(row.pop("log")).read_text()
         row.update(k1_ptxas=ptxas_lines("riccati.cu", log),
                    k2_ptxas=ptxas_lines("mpc_solve.cu", log),
-                   k4_ptxas=ptxas_lines("mpc_subproblem.cu", log))
+                   k3_ptxas=ptxas_lines("dense_solve.cu", log),
+                   k4_ptxas=ptxas_lines("mpc_subproblem.cu", log),
+                   k5_ptxas=ptxas_lines("assoc_combine.cu", log))
         print(json.dumps(row), flush=True)
 
 

@@ -2,11 +2,13 @@
 ops/assoc_riccati.py and its scan-level kernel K5 (ops/assoc_combine_cuda.py;
 on the CPU its plain version) against `fbstab_tpu.ops.assoc_riccati`, in
 float64: one combine level against the Pallas kernel in interpret mode
-(1e-10 relative), the batch-last KKT solve against JAX and against the
+(1e-10 relative; the port's spans are instance-major, the JAX package's
+batch-last), the KKT solve against JAX's batch-last one and against the
 saddle system it solves (1e-9), and the single-instance and batched solves
 with riccati="assoc" (exit flags and iteration counts equal per lane). The
 explicit scan is held against a sequential fold and against
-`jax.lax.associative_scan`'s order of combination. K5 itself is compared
+`jax.lax.associative_scan`'s order of combination, and K5's wrapper is
+shown to take the scan's stage-strided views as they are. K5 itself is compared
 with its plain version on the card (marked `cuda`); JAX is imported inside
 the parity tests only."""
 
@@ -23,7 +25,20 @@ from torch_parity import (  # noqa: E402
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
 from fbstab_tpu_torch.ops import assoc_combine_cuda as k5  # noqa: E402
 from fbstab_tpu_torch.ops.assoc_riccati import (  # noqa: E402
-    assoc_kkt_solve_bl, associative_scan)
+    assoc_kkt_solve_im, associative_scan, suffix_values)
+
+
+def span_im(side, **kw):
+    """A batch-last numpy span stack as an instance-major SpanElement:
+    (M, n, n, B) -> (M, B, n, n), (M, n, B) -> (M, B, n)."""
+    return k5.SpanElement(*(
+        torch.tensor(np.ascontiguousarray(np.moveaxis(a, -1, 1)), **kw)
+        for a in side))
+
+
+def batch_last(t):
+    """An instance-major output (M, B, ...) as batch-last numpy."""
+    return np.moveaxis(t.cpu().numpy(), 1, -1)
 
 
 def kkt_arrays(N, nx, nu, B, seed=0):
@@ -59,22 +74,57 @@ def test_combine_matches_pallas_kernel_interpret(monkeypatch):
     jr = jar._SpanElement(*(jnp.asarray(a) for a in right))
     assert jar._combine_kernel_eligible(jl.P11)
     want = jar._combine_bl(jl, jr)
-    tl = k5.SpanElement(*(torch.tensor(a) for a in left))
-    tr = k5.SpanElement(*(torch.tensor(a) for a in right))
-    for got in (k5.combine_bl_plain(tl, tr), k5.combine_bl(tl, tr)):
+    tl, tr = span_im(left), span_im(right)
+    for got in (k5.combine_im_plain(tl, tr), k5.combine_im(tl, tr)):
         for name, g, w in zip(k5.SpanElement._fields, got, want):
-            assert _rel(g.numpy(), w) <= 1e-10, name
+            assert _rel(batch_last(g), w) <= 1e-10, name
 
 
 def test_combine_wrapper_takes_plain_version_for_cpu_tensors():
     left, right = span_arrays(2, 3, 4)
-    tl = k5.SpanElement(*(torch.tensor(a) for a in left))
-    tr = k5.SpanElement(*(torch.tensor(a) for a in right))
-    before = k5.combine_bl.launches
-    got, want = k5.combine_bl(tl, tr), k5.combine_bl_plain(tl, tr)
-    assert k5.combine_bl.launches == before
+    tl, tr = span_im(left), span_im(right)
+    before = k5.combine_im.launches
+    got, want = k5.combine_im(tl, tr), k5.combine_im_plain(tl, tr)
+    assert k5.combine_im.launches == before
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+class _RecordingLib:
+    """Stands in for the kernel library: records what launch_combine
+    passes to fb_assoc_combine."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fb_assoc_combine(self, n, M, B, strides, *ptrs):
+        self.calls.append((n, M, B, list(strides), ptrs[:10]))
+        return 0
+
+
+def test_combine_wrapper_takes_the_scans_strided_views_without_copies():
+    """Every level of the suffix scan hands K5's launcher views of every
+    other stage element; the launcher passes their own pointers and pair
+    strides (no copy) with contiguous (B, n, n) blocks."""
+    from fbstab_tpu_torch.ops.assoc_combine_cuda import launch_combine
+
+    left, _ = span_arrays(9, 3, 4)
+    elems = span_im(left, dtype=torch.float32)
+    lib, seen = _RecordingLib(), []
+
+    def level(l, r):
+        launch_combine(lib, l, r, 0)
+        seen.append([(t.data_ptr(), t.stride(0)) for t in (*l, *r)])
+        return k5.combine_im_plain(l, r)
+    suffix_values(elems, combine=level)
+    assert len(lib.calls) == len(seen) >= 4
+    strided = 0
+    for (n, M, B, strides, ptrs), views in zip(lib.calls, seen):
+        assert (n, B) == (3, 4)
+        assert list(ptrs) == [p for p, _ in views]
+        assert strides == [s for _, s in views]
+        strided += sum(s > B * n * n for s in strides[:3])
+    assert strided > 0
 
 
 @pytest.mark.parametrize("shape", [(8, 4, 3, 5), (40, 3, 2, 4)])
@@ -88,14 +138,16 @@ def test_kkt_solve_matches_reference_and_saddle_system(shape):
     args = [a[k] for k in ("Qh", "Rh", "Sh", "A", "B", "r1x", "r1u", "rl",
                            "sigma")]
     want = jax.jit(jax_solve)(*(jnp.asarray(x) for x in args))
-    got = assoc_kkt_solve_bl(*(torch.tensor(x) for x in args))
+    first = [torch.tensor(np.moveaxis(x, -1, 0)) for x in args[:-1]]
+    got = [np.moveaxis(g.numpy(), 0, -1) for g in assoc_kkt_solve_im(
+        *first, torch.tensor(args[-1]))]
     for name, g, w in zip(("xs", "us", "lams"), got, want):
-        assert _rel(g.numpy(), w) <= 1e-9, name
+        assert _rel(g, w) <= 1e-9, name
 
     # The saddle system: Qh x + Sh'u - l + A'l+ = r1x, Sh x + Rh u + B'l+
     # = r1u (no l+ at stage N), -(G z) + sigma l = rl with (G z)_0 = -x_0,
     # (G z)_i = A x_{i-1} + B u_{i-1} - x_i.
-    xs, us, ls = (g.numpy() for g in got)
+    xs, us, ls = got
     mv = lambda M, v: np.einsum("sijb,sjb->sib", M, v)
     mtv = lambda M, v: np.einsum("sjib,sjb->sib", M, v)
     Qh, Rh, Sh, A, Bm = (a[k] for k in ("Qh", "Rh", "Sh", "A", "B"))
@@ -225,14 +277,12 @@ def test_cuda_kernel_matches_plain_version():
     dev = torch.device("cuda", 0)
     for M, n, B in ((3, 4, 40), (5, 18, 64)):
         left, right = span_arrays(M, n, B)
-        tl = k5.SpanElement(*(torch.tensor(a, dtype=torch.float32,
-                                           device=dev) for a in left))
-        tr = k5.SpanElement(*(torch.tensor(a, dtype=torch.float32,
-                                           device=dev) for a in right))
-        before = k5.combine_bl.launches
-        got = k5.combine_bl(tl, tr)
+        f32 = dict(dtype=torch.float32, device=dev)
+        tl, tr = span_im(left, **f32), span_im(right, **f32)
+        before = k5.combine_im.launches
+        got = k5.combine_im(tl, tr)
         torch.cuda.synchronize()
-        assert k5.combine_bl.launches == before + 1
-        want = k5.combine_bl_plain(tl, tr)
+        assert k5.combine_im.launches == before + 1
+        want = k5.combine_im_plain(tl, tr)
         for name, g, w in zip(k5.SpanElement._fields, got, want):
-            assert _rel(g.cpu().numpy(), w.cpu().numpy()) <= 1e-4, name
+            assert _rel(batch_last(g), batch_last(w)) <= 1e-4, name

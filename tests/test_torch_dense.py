@@ -181,6 +181,40 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert tuple(x1.l.shape) == (8, 2)
 
 
+class _RecordingLib:
+    """Stands in for the kernel library: records the launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fb_dense_ws_floats(self, n, q, nl):
+        return 11
+
+    def fb_dense_solve(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launcher_hands_the_batch_first_tensors_uncopied():
+    """K3's launcher passes the data and guesses' own pointers (K3 reads the
+    batch-first tensors as torch holds them: no transposed copies), and
+    the kernel writes (B, .) outputs and a (B, floats per instance)
+    scratch."""
+    B, n, q, nl = 3, 4, 6, 2
+    data = torch_dense_data(dense_arrays(B, n, q, nl), torch.float32)
+    data = type(data)(*(a.contiguous() for a in data))
+    guess = [torch.zeros(B, k) for k in (n, nl, q)]
+    lib = _RecordingLib()
+    x, core = dense_solve_cuda.launch_dense_solve(
+        lib, data, *guess, Options.single_precision(), 5)
+    (args,) = lib.calls
+    assert args[:4] == (n, q, nl, B) and args[-1] == 5
+    assert list(args[5:14]) == [a.data_ptr() for a in (*data, *guess)]
+    assert list(args[14:18]) == [a.data_ptr() for a in x]
+    assert [tuple(a.shape) for a in x] == [(B, n), (B, nl), (B, q), (B, q)]
+    assert not hasattr(dense_solve_cuda, "to_batch_last")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,q,nl", [(512, 32, 64, 0), (128, 16, 32, 8)])
 def test_cuda_kernel_through_the_dispatch(B, n, q, nl):

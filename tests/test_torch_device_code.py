@@ -5,12 +5,13 @@ double in place of float, behind the CUDA library's C interface. In float64
 the replayed fused solvers (K2, MPC; K3, dense) must take exactly the plain
 solvers' decisions on every lane: the same exit flag, Newton and proximal
 iteration counts, iterates within 1e-9; so must the host outer loop of the
-subfused tier on the replayed per-subproblem kernel (K4). K2 and K4 are
-replayed on the team of one in their instance-major layout, and on teams
-of host threads. The replayed Newton step (K1, instance-major) must match
-its plain version within 1e-10 and, on every team, give the team of one's
-bits; the scan-level combine (K5) must match its plain version within
-1e-10. This pins the per-lane semantics of the
+subfused tier on the replayed per-subproblem kernel (K4). Every kernel is
+replayed in its instance-major layout on the team of one and on teams of
+host threads, which stage their operands or work in place as the card's
+teams do. The replayed Newton step (K1) must match its plain version
+within 1e-10 and, on every team, give the team of one's bits; so must the
+scan-level combine (K5); K2 and K3 on teams must take the plain solvers'
+decisions. This pins the per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
 hide on the card (chip_smoke.py bounds the float32 Newton counts there).
 The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
@@ -41,9 +42,9 @@ from fbstab_tpu_torch.models.scaling import (  # noqa: E402
     ruiz_mpc_scaling)
 from fbstab_tpu_torch.ops import _build  # noqa: E402
 from fbstab_tpu_torch.ops.assoc_combine_cuda import (  # noqa: E402
-    SpanElement, combine_bl_plain)
+    SpanElement, combine_im_plain)
 from fbstab_tpu_torch.ops.dense_solve_cuda import (  # noqa: E402
-    fbstab_dense_solve_plain, to_batch_last)
+    fbstab_dense_solve_plain)
 from fbstab_tpu_torch.ops.mpc_solve_cuda import (  # noqa: E402
     fbstab_mpc_solve_plain, solve_opts)
 from fbstab_tpu_torch.options import Options  # noqa: E402
@@ -81,8 +82,6 @@ def lib(tmp_path_factory):
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I] * 4 + [SolveOpts64] + [P] * 19
     lib.fb_mpc_subproblem.argtypes = [I] * 5 + [SolveOpts64] + [P] * 32
-    lib.fb_combine_ws_floats.argtypes = [I]
-    lib.fb_combine_ws_floats.restype = ctypes.c_longlong
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
     for fn in (lib.fb_replay_set_team, lib.fb_replay_set_stages):
@@ -92,14 +91,16 @@ def lib(tmp_path_factory):
 
 
 @contextlib.contextmanager
-def on_team(lib, T):
-    """Replays K1, K2 and K4 on a team of T host threads inside the
-    block."""
+def on_team(lib, T, stages=True):
+    """Replays the kernels on a team of T host threads inside the block,
+    staging their operands or (stages=False) in place."""
     lib.fb_replay_set_team(T)
+    lib.fb_replay_set_stages(int(stages))
     try:
         yield
     finally:
         lib.fb_replay_set_team(1)
+        lib.fb_replay_set_stages(1)
 
 
 def _replay_solve(lib, data, options):
@@ -210,15 +211,11 @@ def _replay_step(lib, td, ins, T=1, stages=True):
     dz = torch.empty(B, (N + 1) * (nx + nu), **f64)
     dl = torch.empty(B, (N + 1) * nx, **f64)
     ws = torch.empty(B, lib.fb_riccati_ws_floats(N, nx, nu, nc), **f64)
-    lib.fb_replay_set_stages(int(stages))
-    try:
-        with on_team(lib, T):
-            assert lib.fb_riccati_step(
-                N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA, ins[-1].data_ptr(),
-                *[a.data_ptr() for a in args], dz.data_ptr(), dl.data_ptr(),
-                ws.data_ptr()) == 0
-    finally:
-        lib.fb_replay_set_stages(1)
+    with on_team(lib, T, stages):
+        assert lib.fb_riccati_step(
+            N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA, ins[-1].data_ptr(),
+            *[a.data_ptr() for a in args], dz.data_ptr(), dl.data_ptr(),
+            ws.data_ptr()) == 0
     return dz, dl
 
 
@@ -227,6 +224,10 @@ def _replay_step(lib, td, ins, T=1, stages=True):
 # in place (K1 at stages too large for a block's shared memory).
 K1_TEAMS = {"1": (1, True), "2": (2, True), "4": (4, True), "8": (8, True),
             "32": (32, True), "32_in_place": (32, False)}
+# K5's: the team of one, teams of 2 to 32 that stage (the card's teams
+# do), and a team of 8 in place, the team of one's path.
+K5_TEAMS = {"1": (1, True), "2": (2, True), "8": (8, True),
+            "32": (32, True), "8_in_place": (8, False)}
 
 
 @pytest.mark.parametrize("team", list(K1_TEAMS))
@@ -268,24 +269,27 @@ def test_replayed_newton_step_matches_plain_step(lib, plant, N, B, team):
         assert torch.equal(dz, oz) and torch.equal(dl, ol)
 
 
-def _replay_dense(lib, data, options):
-    """The replayed K3 from zero initial guesses: (z, l, v, eflag, newton,
-    prox, res), batch-first."""
+def _replay_dense(lib, data, options, T=1, stages=True):
+    """The replayed K3 from zero initial guesses on the instance-major
+    (batch-first) arrays, on a team of T host threads that stages or works
+    in place: (z, l, v, eflag, newton, prox, res)."""
     B, n = data.f.shape
     nl, q = data.h.shape[1], data.b.shape[1]
     f64 = dict(dtype=torch.float64)
     guess = [torch.zeros(B, k, **f64) for k in (n, nl, q)]
-    ins = [to_batch_last(a) for a in (*data, *guess)]
-    z, l, v, y = (torch.empty(k, B, **f64) for k in (n, nl, q, q))
+    ins = [a.contiguous() for a in (*data, *guess)]
+    z, l, v, y = (torch.empty(B, k, **f64) for k in (n, nl, q, q))
     eflag, newton, prox = (torch.empty(B, dtype=torch.int32)
                            for _ in range(3))
     res, res0 = torch.empty(B, **f64), torch.empty(B, **f64)
-    ws = torch.empty(lib.fb_dense_ws_floats(n, q, nl), B, **f64)
+    ws = torch.empty(B, lib.fb_dense_ws_floats(n, q, nl), **f64)
     outs = (z, l, v, y, eflag, res, newton, prox, res0, ws)
-    assert lib.fb_dense_solve(n, q, nl, B, solve_opts(options, SolveOpts64),
-                              *[a.data_ptr() for a in ins],
-                              *[a.data_ptr() for a in outs]) == 0
-    return z.t(), l.t(), v.t(), eflag, newton, prox, res
+    with on_team(lib, T, stages):
+        assert lib.fb_dense_solve(n, q, nl, B,
+                                  solve_opts(options, SolveOpts64),
+                                  *[a.data_ptr() for a in ins],
+                                  *[a.data_ptr() for a in outs]) == 0
+    return z, l, v, eflag, newton, prox, res
 
 
 def _dense_equilibrated(B, n=32, q=64, nl=0):
@@ -306,10 +310,10 @@ DENSE_CASES = {
     "bench_equilibrated": (lambda: _dense_equilibrated(64),
                            Options.single_precision),
     # The JAX package's dense gate (n = 64, q = 128) with Gaussian equality
-    # rows, beyond DENSE_DIMS_CAP: at its corner nl = n the rows fix z and
+    # rows: at its corner nl = n, beyond DENSE_DIMS_CAP, the rows fix z and
     # float32 solves (K3 and its plain version alike) part from float64 on
     # ill-conditioned lanes; in float64 the device code takes the plain
-    # solver's steps there and at nl = n / 2.
+    # solver's steps there and at nl = n / 2, DENSE_DIMS_CAP's corner.
     "gate_corner_equilibrated": (lambda: _dense_equilibrated(8, 64, 128, 64),
                                  Options.single_precision),
     "gate_half_equality_equilibrated": (
@@ -320,8 +324,26 @@ DENSE_CASES = {
 @pytest.mark.parametrize("case", list(DENSE_CASES))
 def test_replayed_dense_solver_takes_the_plain_solvers_decisions(lib, case):
     make_data, make_options = DENSE_CASES[case]
-    data, opts = make_data(), make_options()
-    z, l, v, eflag, newton, prox, res = _replay_dense(lib, data, opts)
+    _check_replayed_dense(lib, make_data(), make_options())
+
+
+@pytest.mark.parametrize("case,T,stages", [
+    ("mixed_nl2_abs_tol_1e-8", 32, False),
+    ("gate_half_equality_equilibrated", 8, True)])
+def test_replayed_dense_solver_on_a_team_takes_the_plain_solvers_decisions(
+        lib, case, T, stages):
+    """K3's device code on a team of T host threads, staging H, A, G and
+    the Newton-step scratch or in place: the split of the rows, of E's and
+    S's entries and of W's rows, the team's Choleskys and solves, and its
+    reductions (summed in another order than the team of one's) still give
+    the plain solver's decisions on every lane."""
+    make_data, make_options = DENSE_CASES[case]
+    _check_replayed_dense(lib, make_data(), make_options(), T, stages)
+
+
+def _check_replayed_dense(lib, data, opts, T=1, stages=True):
+    z, l, v, eflag, newton, prox, res = _replay_dense(lib, data, opts, T,
+                                                      stages)
     B, n = data.f.shape
     nl, q = data.h.shape[1], data.b.shape[1]
     guess = [torch.zeros(B, k, dtype=torch.float64) for k in (n, nl, q)]
@@ -452,23 +474,48 @@ def test_layout_helpers_match_the_device_code(lib, dims):
     assert smem <= SMEM_LIMIT
 
 
+def _replay_combine(lib, left, right, T=1, stages=True):
+    """The replayed K5 on instance-major spans, on a team of T host threads
+    that stages or works in place."""
+    M, B, n, _ = left.P11.shape
+    out = SpanElement(*(torch.empty(a.shape, dtype=torch.float64)
+                        for a in left))
+    ins = (*left, *right)
+    strides = (ctypes.c_longlong * 10)(*(a.stride(0) for a in ins))
+    with on_team(lib, T, stages):
+        assert lib.fb_assoc_combine(n, M, B, strides,
+                                    *[a.data_ptr() for a in ins],
+                                    *[a.data_ptr() for a in out]) == 0
+    return out
+
+
+@pytest.mark.parametrize("team", list(K5_TEAMS))
 @pytest.mark.parametrize("M,n,B", [(3, 4, 5), (2, 18, 3)])
-def test_replayed_combine_matches_plain_combine(lib, M, n, B):
-    left, right = (SpanElement(*(torch.tensor(a) for a in side))
-                   for side in span_arrays(M, n, B))
-    f64 = dict(dtype=torch.float64)
-    out = SpanElement(*(torch.empty(a.shape, **f64) for a in left))
-    ws = torch.empty(lib.fb_combine_ws_floats(n), M * B, **f64)
-    assert lib.fb_assoc_combine(n, M, B, *[a.data_ptr() for a in left],
-                                *[a.data_ptr() for a in right],
-                                *[a.data_ptr() for a in out],
-                                ws.data_ptr()) == 0
-    want = combine_bl_plain(left, right)
+def test_replayed_combine_matches_plain_combine(lib, M, n, B, team):
+    """The plain combine within 1e-10, and on a team of T > 1 host threads
+    (the kernel's split of the factor, the solves and the products) the
+    team of one's bits, since every output entry is computed by one thread
+    in the team of one's order. The left operands are every other element
+    of a stack of 2M, as a scan level hands them to the kernel."""
+    left, right = span_arrays(M, n, B)
+    im = lambda a: torch.tensor(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+    wide = SpanElement(*(torch.cat([im(a), -im(a)], 1).reshape(
+        (2 * M,) + im(a).shape[1:]) for a in left))
+    left = SpanElement(*(a[0::2] for a in wide))
+    right = SpanElement(*(im(a) for a in right))
+    T, stages = K5_TEAMS[team]
+    out = _replay_combine(lib, left, right, T, stages)
+    want = combine_im_plain(left, right)
     for name, got, w in zip(SpanElement._fields, out, want):
         w = w.numpy()
-        scale = 1 + np.abs(w).max(tuple(range(w.ndim - 1)))
+        lane_max = np.abs(w).max((0,) + tuple(range(2, w.ndim)),
+                                 keepdims=True)
+        scale = 1 + lane_max
         np.testing.assert_allclose(got.numpy() / scale, w / scale,
                                    atol=1e-10, err_msg=name)
+    if T > 1:
+        one = _replay_combine(lib, left, right)
+        assert all(torch.equal(a, b) for a, b in zip(out, one))
 
 
 def test_replayed_df_transforms_are_exact_and_bit_equal_to_plain(lib):

@@ -18,6 +18,7 @@
 
 #include <barrier>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 // The double-float transforms of P3 stay in float32: their exactness is
@@ -134,7 +135,7 @@ Lane stage_block(const Tm&, std::vector<float>& stage, Lane w,
 
 extern "C" {
 
-// The team size K1, K2 and K4 replay on: 1 (the default), 2, 4, ..., 32.
+// The team size the kernels replay on: 1 (the default), 2, 4, ..., 32.
 void fb_replay_set_team(int T) { g_team = T; }
 
 // Whether a team of more than one thread stages (1, the default) or works
@@ -219,7 +220,7 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
 }
 
 long long fb_dense_ws_floats(int n, int q, int nl) {
-  return dense_solve_layout(DenseDims{n, q, nl}).total;
+  return dense_solve_layout(DenseDims{n, q, nl}, false).total;
 }
 
 int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
@@ -229,24 +230,31 @@ int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
                    float* v, float* y, int* eflag, float* res, int* newton,
                    int* prox, float* res0, float* ws) {
   const DenseDims D{n, q, nl};
+  const long long wsf = fb_dense_ws_floats(n, q, nl);
+  std::vector<float> stage(dense_stage_layout(D).total);
   for (int k = 0; k < B; ++k) {
     DenseProb P;
-    P.H = lane_of(H, B, k);
-    P.f = lane_of(f, B, k);
-    P.G = lane_of(G, B, k);
-    P.h = lane_of(h, B, k);
-    P.A = lane_of(A, B, k);
-    P.b = lane_of(b, B, k);
+    P.H = lane_im(H, (long long)n * n, k);
+    P.f = lane_im(f, n, k);
+    P.G = lane_im(G, (long long)nl * n, k);
+    P.h = lane_im(h, nl, k);
+    P.A = lane_im(A, (long long)q * n, k);
+    P.b = lane_im(b, q, k);
     SolveOut out;
-    out.x = Vars{lane_of(z, B, k), lane_of(l, B, k), lane_of(v, B, k),
-                 lane_of(y, B, k)};
+    out.x = Vars{lane_im(z, n, k), lane_im(l, nl, k), lane_im(v, q, k),
+                 lane_im(y, q, k)};
     out.eflag = eflag + k;
     out.res = res + k;
     out.newton = newton + k;
     out.prox = prox + k;
     out.res0 = res0 + k;
-    fbstab_dense_solve_lane(D, o, P, lane_of(z0, B, k), lane_of(l0, B, k),
-                            lane_of(v0, B, k), out, lane_of(ws, B, k));
+    const Lane w = lane_im(ws, wsf, k);
+    on_team([&](const auto& tm) {
+      using Tm = std::decay_t<decltype(tm)>;
+      fbstab_dense_solve_lane(tm, D, o, P, lane_im(z0, n, k),
+                              lane_im(l0, nl, k), lane_im(v0, q, k), out, w,
+                              Tm::kStages ? Lane{stage.data(), 1} : w);
+    });
   }
   return 0;
 }
@@ -295,28 +303,35 @@ int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
   return 0;
 }
 
-long long fb_combine_ws_floats(int n) { return assoc_combine_ws_floats(n); }
-
-int fb_assoc_combine(int n, int M, int B, const float* lP11,
-                     const float* lP12, const float* lP22, const float* lp1,
-                     const float* lp2, const float* rP11, const float* rP12,
-                     const float* rP22, const float* rp1, const float* rp2,
-                     float* oP11, float* oP12, float* oP22, float* op1,
-                     float* op2, float* ws) {
-  const long long MB = (long long)M * B;
+// K5 without the kernel's scratch argument: a team that works in place
+// keeps its stage block in a buffer of the replay's.
+int fb_assoc_combine(int n, int M, int B, const long long* strides,
+                     const float* lP11, const float* lP12, const float* lP22,
+                     const float* lp1, const float* lp2, const float* rP11,
+                     const float* rP12, const float* rP22, const float* rp1,
+                     const float* rp2, float* oP11, float* oP12, float* oP22,
+                     float* op1, float* op2) {
+  const long long nn = (long long)n * n, MB = (long long)M * B;
+  std::vector<float> stage(combine_layout(n, true).total),
+      scratch(combine_layout(n, false).total);
   for (long long t = 0; t < MB; ++t) {
     const long long m = t / B, b = t % B;
-    const long long mat = m * n * n * B, vec = m * n * B;
-    const Span l{lane_of(lP11 + mat, B, b), lane_of(lP12 + mat, B, b),
-                 lane_of(lP22 + mat, B, b), lane_of(lp1 + vec, B, b),
-                 lane_of(lp2 + vec, B, b)};
-    const Span r{lane_of(rP11 + mat, B, b), lane_of(rP12 + mat, B, b),
-                 lane_of(rP22 + mat, B, b), lane_of(rp1 + vec, B, b),
-                 lane_of(rp2 + vec, B, b)};
-    const Span o{lane_of(oP11 + mat, B, b), lane_of(oP12 + mat, B, b),
-                 lane_of(oP22 + mat, B, b), lane_of(op1 + vec, B, b),
-                 lane_of(op2 + vec, B, b)};
-    assoc_combine_lane(n, l, r, o, lane_of(ws, MB, t));
+    auto at = [&](const float* p, long long sm, long long k) {
+      return Lane{const_cast<float*>(p) + m * sm + b * k, 1};
+    };
+    const Span l{at(lP11, strides[0], nn), at(lP12, strides[1], nn),
+                 at(lP22, strides[2], nn), at(lp1, strides[3], n),
+                 at(lp2, strides[4], n)};
+    const Span r{at(rP11, strides[5], nn), at(rP12, strides[6], nn),
+                 at(rP22, strides[7], nn), at(rp1, strides[8], n),
+                 at(rp2, strides[9], n)};
+    const Span o{at(oP11, B * nn, nn), at(oP12, B * nn, nn),
+                 at(oP22, B * nn, nn), at(op1, B * n, n), at(op2, B * n, n)};
+    on_team([&](const auto& tm) {
+      using Tm = std::decay_t<decltype(tm)>;
+      assoc_combine_team(tm, n, l, r, o,
+                         Lane{(Tm::kStages ? stage : scratch).data(), 1});
+    });
   }
   return 0;
 }
