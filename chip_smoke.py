@@ -33,7 +33,10 @@ fatal on failure:
      version as the yardstick of float32 rounding, and its design line;
   8. P1, the stage-matvec probe: the bench's mxu mode (N1 = 81, n = 18,
      B = 128, T = 200), then its three kernels against their plain versions
-     at T = 1 and 8, with times, library calls and bounds at T = 200;
+     at T = 1 and 8, with times, library calls and bounds at T = 200 and
+     each one's design line (threads per team, rows and lanes a thread,
+     registers, spill bytes, shared bytes, blocks per SM, waves); the two
+     CUDA-core forms also at n = 5 and 32 (B = 40);
   9. P3, the double-float probe: the probe tool's run, bit equality with
      the plain version, exactness against float64, and the same source
      built with plain operators (does nvcc contract them?);
@@ -61,7 +64,8 @@ fatal on failure:
 
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: for K1-K5 a team of T threads per instance, or per pair and
-instance for K5, on instance-major data; K1's row also holds each K1
+instance for K5, on instance-major data; for P1's CUDA-core forms a team
+per stage and lanes with its register tile; K1's row also holds each K1
 shape's numbers under `shapes`, K3's its two batches'), the last line
 {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -153,9 +157,12 @@ def phase_build():
     _build.load_library()
     secs = time.perf_counter() - t0
     log = _build.library_path().with_suffix(".log")
-    usage = [ln.strip() for ln in (log.read_text().splitlines()
-                                   if log.exists() else [])
-             if "registers" in ln or "spill" in ln]
+    log = log.read_text() if log.exists() else ""
+    # P1's CUDA-core forms are compiled for every n up to the cap: only
+    # the probe's n = 18 is printed here.
+    usage = [ln for src in sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))
+             for entry in (P1_ENTRIES if src == "mxu_probe.cu" else (None,))
+             for ln in _build.ptxas_lines(src, log, entry)]
     print(f"build: {secs:.1f} s ({_build.library_path().name}); ptxas: "
           + " | ".join(usage))
 
@@ -177,6 +184,41 @@ def design_line(name, source, info_fn, dims, per="instance"):
           f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source)))
     return (f"team of {info['team']} per {per}, instance-major"
             + ("" if info["smem_bytes"] else ", stage block in device memory"))
+
+
+# P1's kernels in the build log at the probe's n = 18, by form.
+P1_ENTRIES = ("stage_matvec_teamILi18ELb1E", "stage_matvec_teamILi18ELb0E",
+              "stage_matvec_tensor_cores")
+
+
+def p1_design_line(form, n, N1, B):
+    """Prints P1's launch at n for N1 stages of B lanes (fb_mxu_probe_info)
+    and its ptxas lines at n = 18; returns the row's `design`."""
+    from fbstab_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    info = _build.kernel_info(lib.fb_mxu_probe_info, form, n, N1, B,
+                              fields=_build.MXU_INFO_FIELDS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = info["blocks_per_sm"] * sms
+    if form == 2:
+        design = "a warp per (stage, 8-lane tile), TF32 mma.sync"
+    else:
+        design = (f"team of {info['team']} per (stage, {info['lanes']} "
+                  f"lane{'s' if info['lanes'] > 1 else ''}), "
+                  f"{info['rows']} x {info['lanes']} register tile a thread, "
+                  f"one __syncwarp per application")
+    name = ("cuda_perlane", "cuda_shared", "tc_shared")[form]
+    print(f"P1 {name} design (n={n} N1={N1} B={B}): {design}; "
+          f"{info['teams_per_block']} teams per block; {info['registers']} "
+          f"registers and {info['local_bytes']} local bytes per thread; "
+          f"{info['smem_bytes']} bytes of shared memory per block; "
+          f"{info['blocks_per_sm']} resident blocks per SM; "
+          f"{info['blocks']} blocks, {resident} resident at once on {sms} "
+          f"SMs ({-(-info['blocks'] // resident)} wave) | "
+          f"ptxas: " + " | ".join(_build.ptxas_lines(
+              "mxu_probe.cu", entry=P1_ENTRIES[form])))
+    return design
 
 
 # K1's shapes on the card: the headline (phase 3's timed shape, K1's
@@ -792,11 +834,18 @@ def phase_assoc_batch(B, device):
     return n
 
 
+# P1's CUDA-core forms are compiled for each n: beside the probe's n = 18
+# they are held at a stage that the rows a thread holds do not divide and
+# at the cap, on a ragged lane count.
+P1_OTHER_SHAPES = ((5, 40), (32, 40))
+
+
 def phase_p1(device):
     """P1, the stage-matvec probe: the bench's mxu mode (its path, whose
     launches are counted), then each form against its plain version at
     T = 1 and 8 (the iterate underflows to zero long before the probe's
-    T = 200), the times at T = 200, the library calls and the bounds."""
+    T = 200), the times at T = 200, the library calls, the bounds and the
+    design line; the CUDA-core forms also at P1_OTHER_SHAPES."""
     from fbstab_tpu_torch import bench
     from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
 
@@ -810,9 +859,9 @@ def phase_p1(device):
     mats = dict(perlane=Mp, shared=Ms)
     plain = dict(perlane=p1.perlane_plain, shared=p1.shared_plain)
     rows, ok = {}, True
-    for name, kernel, kind in bench.mxu_forms():
-        M = mats[kind]
-        errs, max_abs = [], 0.0
+
+    def against_plain(kernel, kind, M, w0, n_, scale):
+        errs, max_abs, good = [], 0.0, True
         for t in (1, 8):
             got = kernel(M, w0, t, scale)
             want = plain[kind](M, w0, t, scale)
@@ -825,7 +874,23 @@ def phase_p1(device):
             max_abs = max(max_abs, (got - want).abs().max().item())
             errs.append(f"T={t} {err:.3e} (tol {tol:.3e}; float32 plain vs "
                         f"float64 {gap:.3e})")
-            ok = ok and bool(np.isfinite(err)) and err <= tol
+            good = good and bool(np.isfinite(err)) and err <= tol
+        return errs, max_abs, good
+
+    for form, (name, kernel, kind) in enumerate(bench.mxu_forms()):
+        design = p1_design_line(form, n_, N1, B)
+        M = mats[kind]
+        errs, max_abs, good = against_plain(kernel, kind, M, w0, n_, scale)
+        ok = ok and good
+        if kernel is not p1.tc_shared:
+            for n_o, B_o in P1_OTHER_SHAPES:
+                Mp_o, Ms_o, w0_o = p1.probe_inputs(N1, n_o, B_o, device)
+                e_o, _, good = against_plain(
+                    kernel, kind, Mp_o if kind == "perlane" else Ms_o, w0_o,
+                    n_o, p1.scale_of(n_o))
+                ok = ok and good
+                print(f"P1 {name} ({kernel.__name__}) at n={n_o} B={B_o}: "
+                      f"vs plain " + "; ".join(e_o))
         ms = cuda_ms(lambda: kernel(M, w0, T, scale), 5)
         plain_ms = cuda_ms(lambda: plain[kind](M, w0, T, scale), 3)
         flops = stage_matvec_flops(N1, n_, B, T)
@@ -865,7 +930,7 @@ def phase_p1(device):
                  "peak" if kernel is p1.tc_shared else "") + ")")
         rows[kernel.__name__] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms)
+            bound_by=bound_by, library_ms=library_ms, design=design)
     if not ok:
         fail("a P1 form disagrees with its plain version")
     if min(n["P1_perlane"], n["P1_shared"], n["P1_tc"]) < 1:
@@ -1026,11 +1091,9 @@ def main():
              source="fbstab_tpu_torch/csrc/mxu_probe.cu",
              replaces="bench.py:998, scratch/tpu_mxu.py:104",
              launches=n_mxu[key], launches_by_path=by_path(key),
-             design=design, **p1[form])
-        for form, key, design in (
-            ("cuda_perlane", "P1_perlane", "one thread per row and lane"),
-            ("cuda_shared", "P1_shared", "one thread per row and lane"),
-            ("tc_shared", "P1_tc", "one warp per 8 lanes, TF32 mma.sync"))
+             **p1[form])
+        for form, key in (("cuda_perlane", "P1_perlane"),
+                          ("cuda_shared", "P1_shared"), ("tc_shared", "P1_tc"))
     ] + [
         dict(name="df_probe", route="cuda",
              source="fbstab_tpu_torch/csrc/df_probe.cu",

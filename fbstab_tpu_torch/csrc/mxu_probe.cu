@@ -1,12 +1,14 @@
 // P1: the stage-matvec probe on Hopper, in three forms.
 //
-// Replaces the three Pallas TPU kernels of bench.py's `run_mxu` (kernel
-// bodies bench.py:953-985, pallas_call bench.py:998; the same probe in
+// Replaces the three Pallas TPU kernels of bench.py's `run_mxu`
+// (vpu_perlane bench.py:953, vpu_shared :963, mxu_shared :973, each
+// launched by the pallas_call at bench.py:998; the same probe in
 // scratch/tpu_mxu.py:104). Each applies, T times, w_s <- scale * M_s w_s
-// to every stage s of every lane b: M is per lane, (N1, n, n, B), or shared,
-// (N1, n, n); w is (N1 * n, B) with stage s in rows s*n .. s*n + n - 1.
-// The question the probe answers: do matrix units beat vector code on the
-// stage products at the copolymerization reactor's stage size (n = 18)?
+// to every stage s of every lane b: M is per lane, (N1, n, n, B), or
+// shared, (N1, n, n); w is (N1 * n, B) with stage s in rows s*n .. s*n +
+// n - 1. The question the probe answers: do matrix units beat vector code
+// on the stage products at the copolymerization reactor's stage size
+// (n = 18)?
 //
 //   form 0, cuda_perlane (vpu_perlane): per-lane M on the CUDA cores;
 //   form 1, cuda_shared  (vpu_shared):  shared M on the CUDA cores;
@@ -14,71 +16,101 @@
 //                                       product per stage (mma.sync
 //                                       m16n8k8, n padded to 32 x 8k).
 //
-// Design: the recurrence never mixes stages or lanes, so each block keeps
-// its slice resident for all T applications and the T loop runs inside the
+// The recurrence never mixes stages or lanes, so every team keeps its
+// slice resident for all T applications and the T loop runs inside the
 // kernel (the reference's fori_loop), one launch per call.
-//  - CUDA-core forms: a block per (stage, 32 lanes), a thread per (row i,
-//    lane); the thread holds row i of M_s in registers (read once: the
-//    shared form's loads are warp broadcasts), the block holds the 32
-//    lanes' w_s in shared memory (a warp is one row of 32 lanes, so its
-//    reads are conflict-free). Each application: n FMAs per thread, two
-//    barriers.
-//  - tc_shared: a block per (stage, 4 tiles of 8 lanes), a warp per tile.
-//    The padded M_s (32 x 32, zeros beyond n) is loaded once and converted
-//    to TF32 A fragments held in registers for all T; each warp keeps its
-//    tile of w_s (32 x 8, rows >= n zero) in shared memory and per
-//    application loads the B fragments, runs 2 (m) x ceil(n/8) (k) MMAs,
-//    scales and writes rows < n back. Tiles are independent: __syncwarp.
 //
-// What bounds it: operations, 2 n^2 N1 B T = 1.34 GFLOP at the probe's
-// size (20 us on the CUDA cores' float32 peak, 2.7 us on the TF32 tensor
-// peak) against 16.4 MB of M and w moved once (4.9 us): latency of the
-// n-long dependent FMA chain and the two barriers per application are
-// what the design leaves on the table.
+// What bounds the CUDA-core forms: operations, 2 n^2 N1 B T = 1.34 GFLOP
+// at the probe's shape (N1 = 81, n = 18, B = 128, T = 200), 20.1 us at
+// the float32 peak, against 14.9 MB (per lane) or 1.6 MB (shared) moved
+// once (4.4 us or less). One application is only 3.36 M FMAs, ~200
+// cycles of the 132 SMs' FP32 units, about 11 outputs per FP32 lane: too
+// little work to hide latency behind more warps, so it is hidden inside
+// each thread, and the FP32 units are kept fed by issuing little else.
+//  - A team per (stage, c lanes) inside one warp (mxu_probe.cuh): each
+//    thread holds r rows of M_s in registers, read once (per lane: M is
+//    13.4 MB, 40% of the card's registers), and r x c independent
+//    accumulators; each 16-byte broadcast load of the team's w buffer
+//    feeds 4 r FMAs; the buffer is double-buffered, so one __syncwarp per
+//    application, and the T loop is unrolled by two and has no branch, so
+//    the loop body is the FMAs, the loads, the scale and the stores. Form 0: kPerlaneTeam threads per (stage, lane); form 1:
+//    kSharedTeam threads per (stage, kSharedLanes lanes).
+//  - n is a template parameter (1 .. kMxuMaxN): every loop has an exact
+//    trip count and the arrays stay in registers.
+//  - At n = 18 a team of 3 (6 rows a thread, 6 or 12 accumulators) packs
+//    10 teams in a warp (30 of 32 lanes); with 4-warp blocks the whole
+//    grid is resident at once (one wave: 260 blocks per lane, 130 shared)
+//    and every scheduler of an SM gets the same share.
+//  - What is left (H100 at 1980 MHz, PERF.md §6): one application
+//    takes ~350 cycles against ~250 issue slots a scheduler and ~200 for
+//    the FMAs alone at full lanes; the per-lane form's M (13.4 MB) adds
+//    ~3 us before the first application.
+//  - tc_shared: a block per (stage, 4 tiles of 8 lanes), a warp per tile.
+//    The padded M_s (32 x 32, zeros beyond n) is loaded once and
+//    converted to TF32 A fragments held in registers for all T; each warp
+//    keeps its tile of w_s (32 x 8, rows >= n zero) in shared memory and
+//    per application loads the B fragments, runs 2 (m) x ceil(n/8) (k)
+//    MMAs, scales and writes rows < n back. Tiles are independent:
+//    __syncwarp. Bound: 2.7 us at the TF32 tensor peak.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mxu_probe.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;      // lanes per block, CUDA-core forms
-constexpr int kMaxN = 32;       // rows of a stage held in registers
+constexpr int kP1Warps = 4;     // warps per block, CUDA-core forms
+constexpr int kMaxN = kMxuMaxN; // tc_shared pads M_s to kMaxN x kMaxN
 constexpr int kTcWarps = 4;     // warps (8-lane tiles) per block, tc form
 
-template <bool kPerLane>
-__global__ void stage_matvec_cuda_cores(int n, int B, int T, float scale,
-                                        const float* __restrict__ M,
-                                        const float* __restrict__ w0,
-                                        float* __restrict__ w_out) {
-  extern __shared__ float ws[];   // (n, kLanes): ws[j * kLanes + lane]
-  const int lane = threadIdx.x;
-  const int i = threadIdx.y;
-  const int s = blockIdx.y;
-  const int b = blockIdx.x * kLanes + lane;
-  const bool live = b < B;
-  const long long row = (long long)s * n + i;
+// The split of form 0 (kPerLane) or 1 at stage size N: C lanes and R rows
+// a thread, G threads a team, P teams a warp; a block holds two copies of
+// each team's buffer and of one spare buffer per warp, which its idle
+// lanes (32 - P G < G of them) run on.
+template <int N, bool kPerLane>
+struct P1Split {
+  static constexpr int C = kPerLane ? 1 : kSharedLanes;
+  static constexpr int team = p1_team_size(
+      N, kPerLane ? kPerlaneTeam : kSharedTeam, kPerLane ? C : 1);
+  static constexpr int R = p1_rows(N, team), G = p1_threads(N, team);
+  static constexpr int P = 32 / G, L = p1_buf_floats(N, C);
+  static constexpr int teams_per_block = kP1Warps * P;
+  static constexpr int slots = teams_per_block + kP1Warps;
+  static_assert(2 * slots * L * 4 <= 48 * 1024,
+                "w buffers beyond static shared memory");
+};
 
-  float m[kMaxN];
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    float mij = 0.0f;
-    if (j < n && live)
-      mij = kPerLane ? M[(row * n + j) * B + b] : M[row * n + j];
-    m[j] = mij;
-  }
-  ws[i * kLanes + lane] = live ? w0[row * B + b] : 0.0f;
-  __syncthreads();
-  float acc = ws[i * kLanes + lane];
-  for (int t = 0; t < T; ++t) {
-    acc = m[0] * ws[lane];
-#pragma unroll
-    for (int j = 1; j < kMaxN; ++j)
-      if (j < n) acc = acc + m[j] * ws[j * kLanes + lane];
-    acc = acc * scale;
-    __syncthreads();
-    ws[i * kLanes + lane] = acc;
-    __syncthreads();
-  }
-  if (live) w_out[row * B + b] = acc;
+struct WarpSync {
+  __device__ __forceinline__ void operator()() const { __syncwarp(); }
+};
+
+// Lane (p G + k) of warp `warp` is thread k of team p; the block's teams
+// are consecutive (stage, lane chunk) pairs, chunks fastest.
+template <int N, bool kPerLane>
+__global__ void __launch_bounds__(32 * kP1Warps)
+    stage_matvec_team(int N1, int B, int T, float scale,
+                      const float* __restrict__ M,
+                      const float* __restrict__ w0, float* __restrict__ w) {
+  using Sp = P1Split<N, kPerLane>;
+  __shared__ __align__(16) float buf[2][Sp::slots][Sp::L];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int p = lane / Sp::G, k = lane % Sp::G;
+  const int slot = p < Sp::P ? warp * Sp::P + p : Sp::teams_per_block + warp;
+  const long long team =
+      (long long)blockIdx.x * Sp::teams_per_block + warp * Sp::P + p;
+  const int chunks = (B + Sp::C - 1) / Sp::C;
+  const long long s = team / chunks;
+  const int b0 = (int)(team % chunks) * Sp::C;
+  const bool live = p < Sp::P && s < N1;
+  p1_team<kPerLane>(P1Fixed<N, Sp::R, Sp::C>{}, WarpSync{}, live, k, s, b0,
+                    B, T, scale, M, w0, w, buf[0][slot], buf[1][slot]);
+}
+
+template <int N, bool kPerLane>
+int stage_matvec_team_blocks(int N1, int B) {
+  using Sp = P1Split<N, kPerLane>;
+  const long long teams = (long long)N1 * ((B + Sp::C - 1) / Sp::C);
+  return (int)((teams + Sp::teams_per_block - 1) / Sp::teams_per_block);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -172,12 +204,98 @@ __global__ void stage_matvec_tensor_cores(int n, int B, int T, float scale,
   }
 }
 
+// Calls f.template go<N>() for the stage size N = n in 1 .. kMxuMaxN.
+template <int N = 1, class F>
+int with_n(int n, const F& f) {
+  if constexpr (N > kMxuMaxN)
+    return (int)cudaErrorInvalidValue;
+  else
+    return n == N ? f.template go<N>() : with_n<N + 1>(n, f);
+}
+
+struct TeamLaunch {
+  int form, N1, B, T;
+  float scale;
+  const float *M, *w0;
+  float* w;
+  cudaStream_t st;
+  template <int N>
+  int go() const {
+    if (form == 0)
+      stage_matvec_team<N, true>
+          <<<stage_matvec_team_blocks<N, true>(N1, B), 32 * kP1Warps, 0,
+             st>>>(N1, B, T, scale, M, w0, w);
+    else
+      stage_matvec_team<N, false>
+          <<<stage_matvec_team_blocks<N, false>(N1, B), 32 * kP1Warps, 0,
+             st>>>(N1, B, T, scale, M, w0, w);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <class K>
+void fill_info(K kernel, int threads, size_t dyn_smem, int* info) {
+  cudaFuncAttributes fa;
+  cudaFuncGetAttributes(&fa, kernel);
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                dyn_smem);
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = (int)(fa.sharedSizeBytes + dyn_smem);
+  info[5] = blocks;
+}
+
+struct TeamInfo {
+  int form, N1, B;
+  int* info;
+  template <int N>
+  int go() const {
+    auto put = [&](auto split, auto kernel, int blocks) {
+      using Sp = decltype(split);
+      info[0] = Sp::G;
+      info[1] = Sp::teams_per_block;
+      fill_info(kernel, 32 * kP1Warps, 0, info);
+      info[6] = Sp::R;
+      info[7] = Sp::C;
+      info[8] = blocks;
+    };
+    if (form == 0)
+      put(P1Split<N, true>{}, stage_matvec_team<N, true>,
+          stage_matvec_team_blocks<N, true>(N1, B));
+    else
+      put(P1Split<N, false>{}, stage_matvec_team<N, false>,
+          stage_matvec_team_blocks<N, false>(N1, B));
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // The largest stage size the probe kernels take.
-int fb_mxu_max_n() { return kMaxN; }
+int fb_mxu_max_n() { return kMxuMaxN; }
+
+// The launch of form `form` at stage size n for N1 stages of B lanes:
+// info[0] threads per team (a warp per 8-lane tile for form 2),
+// info[1] teams per block, info[2] registers per thread, info[3] local
+// (spill) bytes per thread, info[4] shared bytes per block, info[5]
+// resident blocks per SM, info[6] rows and info[7] lanes a thread holds
+// (0 for form 2), info[8] blocks of the grid. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for a form or n the kernels do not take.
+int fb_mxu_probe_info(int form, int n, int N1, int B, int* info) {
+  if (n < 1 || n > kMxuMaxN || form < 0 || form > 2)
+    return (int)cudaErrorInvalidValue;
+  if (form < 2) return with_n(n, TeamInfo{form, N1, B, info});
+  info[0] = 32;
+  info[1] = kTcWarps;
+  fill_info(stage_matvec_tensor_cores, 32 * kTcWarps, 0, info);
+  info[6] = 0;
+  info[7] = 0;
+  info[8] = (B + 8 * kTcWarps - 1) / (8 * kTcWarps) * N1;
+  return (int)cudaGetLastError();
+}
 
 // Launches form 0 (cuda_perlane), 1 (cuda_shared) or 2 (tc_shared) on
 // `stream`: T applications of w_s <- scale * M_s w_s. M: (N1, n, n, B)
@@ -186,24 +304,14 @@ int fb_mxu_max_n() { return kMaxN; }
 // not take.
 int fb_mxu_probe(int form, int N1, int n, int B, int T, float scale,
                  const float* M, const float* w0, float* w, void* stream) {
-  if (n < 1 || n > kMaxN || form < 0 || form > 2)
+  if (n < 1 || n > kMxuMaxN || form < 0 || form > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (form == 2) {
-    const dim3 grid((B + 8 * kTcWarps - 1) / (8 * kTcWarps), N1);
-    stage_matvec_tensor_cores<<<grid, 32 * kTcWarps, 0, st>>>(
-        n, B, T, scale, M, w0, w);
-  } else {
-    const dim3 grid((B + kLanes - 1) / kLanes, N1);
-    const dim3 block(kLanes, n);
-    const size_t shmem = sizeof(float) * n * kLanes;
-    if (form == 0)
-      stage_matvec_cuda_cores<true><<<grid, block, shmem, st>>>(
-          n, B, T, scale, M, w0, w);
-    else
-      stage_matvec_cuda_cores<false><<<grid, block, shmem, st>>>(
-          n, B, T, scale, M, w0, w);
-  }
+  if (form < 2)
+    return with_n(n, TeamLaunch{form, N1, B, T, scale, M, w0, w, st});
+  const dim3 grid((B + 8 * kTcWarps - 1) / (8 * kTcWarps), N1);
+  stage_matvec_tensor_cores<<<grid, 32 * kTcWarps, 0, st>>>(
+      n, B, T, scale, M, w0, w);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -66,15 +67,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfbstab_{h.hexdigest()[:16]}.so"
 
 
-def ptxas_lines(source: str, log: str | None = None) -> list:
+def ptxas_lines(source: str, log: str | None = None,
+                entry: str | None = None) -> list:
     """The register and spill lines ptxas printed for one source of csrc/
     (e.g. "mpc_solve.cu") in a build log, by default the current
-    library's."""
+    library's; with `entry`, only for the kernels whose (mangled) names
+    contain it (e.g. "stage_matvec_teamILi18ELb1E", form 0 at n = 18)."""
     if log is None:
         log = library_path().with_suffix(".log").read_text()
     part = log.split(f"== {source}")[-1].split("==")[0]
+    if entry is not None:
+        part = "".join(f for f in part.split("Compiling entry function")
+                       if entry in f.split("\n")[0])
     return [ln.strip() for ln in part.splitlines()
             if "registers" in ln or "spill" in ln]
+
+
+def _cuobjdump() -> str | None:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/cuobjdump")
+    return str(cand) if cand.exists() else None
+
+
+def sass_blocks(lib_path, kernel: str) -> list | None:
+    """The SASS (cuobjdump -sass) of the kernels inside the shared library
+    at `lib_path` whose (mangled) names contain `kernel`, one text block
+    each; None where cuobjdump is missing."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    blocks = re.split(r"\n\s*Function : ", sass)
+    mine = [blk for blk in blocks[1:] if kernel in blk.split("\n", 1)[0]]
+    if not mine:
+        raise RuntimeError(f"no SASS for {kernel} in {lib_path}")
+    return mine
 
 
 def _compile(out: Path) -> None:
@@ -144,19 +174,28 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_mxu_max_n.restype = I
     lib.fb_mxu_probe.argtypes = [I, I, I, I, I, F] + [P] * 3 + [P]
     lib.fb_mxu_probe.restype = I
+    lib.fb_mxu_probe_info.argtypes = [I, I, I, I, P]
+    lib.fb_mxu_probe_info.restype = I
     bind_df_probe(lib)
     return lib
 
 
-def kernel_info(fn, *dims) -> dict:
+INFO_FIELDS = ("team", "teams_per_block", "registers", "local_bytes",
+               "smem_bytes", "blocks_per_sm")
+# fb_mxu_probe_info's record: the rows and lanes a thread holds and the
+# grid's blocks follow.
+MXU_INFO_FIELDS = INFO_FIELDS + ("rows", "lanes", "blocks")
+
+
+def kernel_info(fn, *dims, fields=INFO_FIELDS) -> dict:
     """A kernel's launch shape at these dims, from its C info function
     (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
     `lib.fb_riccati_info` at (N, nx, nu, nc), `lib.fb_dense_solve_info` at
-    (n, q, nl), `lib.fb_combine_info` at n)."""
-    info = (ctypes.c_int * 6)()
+    (n, q, nl), `lib.fb_combine_info` at n; `lib.fb_mxu_probe_info` at
+    (form, n, N1, B) with fields=MXU_INFO_FIELDS)."""
+    info = (ctypes.c_int * len(fields))()
     check(fn(*dims, info), "kernel info")
-    return dict(zip(("team", "teams_per_block", "registers", "local_bytes",
-                     "smem_bytes", "blocks_per_sm"), info))
+    return dict(zip(fields, info))
 
 
 def bind_df_probe(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -16,9 +16,6 @@ for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -123,24 +120,11 @@ def plain_ops_library():
     return bind_df_probe(ctypes.CDLL(str(path))), path
 
 
-def _cuobjdump() -> str | None:
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/cuobjdump")
-    return str(cand) if cand.exists() else None
-
-
 def sass_ffma_count(lib_path, kernel="df_probe_kernel"):
     """FFMA instructions in the SASS of `kernel` inside the shared library
     at `lib_path` (cuobjdump -sass), or None where cuobjdump is missing."""
-    tool = _cuobjdump()
-    if tool is None:
+    from fbstab_tpu_torch.ops._build import sass_blocks
+    mine = sass_blocks(lib_path, kernel)
+    if mine is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    blocks = re.split(r"\n\s*Function : ", sass)
-    mine = [blk for blk in blocks[1:] if kernel in blk.split("\n", 1)[0]]
-    if not mine:
-        raise RuntimeError(f"no SASS for {kernel} in {lib_path}")
     return sum(len(re.findall(r"\bFFMA\b", blk)) for blk in mine)

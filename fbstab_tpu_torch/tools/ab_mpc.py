@@ -1,7 +1,8 @@
-"""Times the MPC and dense kernels and paths of given source trees on one
-GPU.
+"""Times the MPC and dense kernels and paths and the P1 probe's kernels of
+given source trees on one GPU.
 
     python3 fbstab_tpu_torch/tools/ab_mpc.py TREE [TREE ...]
+    python3 fbstab_tpu_torch/tools/ab_mpc.py --p1 TREE [TREE ...]
 
 For each tree, in the order given, a fresh process imports
 fbstab_tpu_torch from TREE (building its kernels there; the tree must hold
@@ -39,7 +40,20 @@ Options.single_precision():
   - longhorizon_ms: the single-instance solve_mpc_qp on the double
     integrator with riccati="scan" and "assoc" at N = 120, 240, 480 (best
     of three after a warm one);
-  - K1's to K5's registers and spill bytes from the tree's build log.
+  - p1_perlane_ms, p1_shared_ms, p1_tc_ms: P1's three kernels
+    (cuda_perlane, cuda_shared, tc_shared) at the probe's shape (N1 = 81,
+    n = 18, B = 128, T = 200; CUDA events, 20 launches after 0.3 s of
+    them, so the card runs at its working clocks); p1_*_ms_by_T the same
+    at T = 200, 400 and 800 (the slope is the time of one application,
+    the intercept what a launch costs besides); p1_*_clocks_sm_mhz the
+    highest SM clock nvidia-smi read while the form ran its first ~0.3 s
+    (every 50 ms; stopped before the timing); p1_*_ms_zero_w at T = 200
+    from w0 = 0 (every operand zero: the reference's iterate is normal for
+    its first ~50 applications, then subnormal, then zero);
+  - K1's to K5's registers and spill bytes from the tree's build log, and
+    those of P1's two CUDA-core forms at n = 18, with the opcodes of their
+    SASS (p1_*_sass: counts by mnemonic, cuobjdump).
+With --p1 only the P1 keys are measured (seconds a tree after its build).
 Pass a checkout of the parent and of the change as A B B A to compare them
 in turns on one card; copies of one tree that differ in one constant, to
 weigh it. K5's inputs are built with the tree's own scan, whose spans are
@@ -49,13 +63,23 @@ batch-last in trees before the instance-major K5 (`k5_widest_level`).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 LONG_NS = (120, 240, 480)
+P1_SWEEP_T = (200, 400, 800)
+# P1's CUDA-core kernels at n = 18 in a build log: this tree's names, then
+# those of trees before the team kernels.
+P1_ENTRIES = dict(
+    p1_perlane_ptxas=("stage_matvec_teamILi18ELb1E",
+                      "stage_matvec_cuda_coresILb1E"),
+    p1_shared_ptxas=("stage_matvec_teamILi18ELb0E",
+                     "stage_matvec_cuda_coresILb0E"))
 
 
 def k1_inputs(data, seed=5):
@@ -106,9 +130,71 @@ def k5_widest_level(data):
     return combine, levels[0]
 
 
-def measure(tree: str) -> dict:
+def measure_p1(row: dict) -> None:
+    """P1's three kernels at the probe's shape, into `row`."""
+    import torch
+
+    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
+    from fbstab_tpu_torch.workloads import cuda_ms
+
+    dev = torch.device("cuda", 0)
+    Mp, Ms, w0 = p1.probe_inputs(device=dev)
+    zero = torch.zeros_like(w0)
+    scale = p1.scale_of(p1.N_STAGE)
+    for key, kernel, M in (("p1_perlane", p1.cuda_perlane, Mp),
+                           ("p1_shared", p1.cuda_shared, Ms),
+                           ("p1_tc", p1.tc_shared, Ms)):
+        probe = lambda T=p1.T_DEFAULT, w=w0: kernel(M, w, T, scale)
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.3:
+            probe()
+            torch.cuda.synchronize()
+        smi.terminate()
+        samples = [ln.split(",") for ln in smi.communicate()[0].splitlines()
+                   if ln.count(",") == 1]
+        row[key + "_clocks_sm_mhz"] = max(float(c) for c, _ in samples)
+        row[key + "_ms"] = cuda_ms(probe, 20, warm=False)
+        row[key + "_ms_by_T"] = {T: cuda_ms(lambda: probe(T), 20)
+                                 for T in P1_SWEEP_T}
+        row[key + "_ms_zero_w"] = cuda_ms(lambda: probe(w=zero), 20)
+
+
+def sass_opcodes(lib_path, entries) -> dict:
+    """Counts by mnemonic (FFMA, LDS, ...) in the SASS of the first kernel
+    name of `entries` that the library holds."""
+    from collections import Counter
+
+    from fbstab_tpu_torch.ops._build import sass_blocks
+    for entry in entries:
+        try:
+            blocks = sass_blocks(lib_path, entry)
+        except RuntimeError:
+            continue
+        if blocks is None:
+            return {}
+        ops = Counter(m.group(1).split(".")[0] for blk in blocks
+                      for m in re.finditer(
+                          r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)", blk))
+        return dict(ops.most_common())
+    return {}
+
+
+def measure(tree: str, p1_only: bool = False) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
+
+    from fbstab_tpu_torch.ops import _build
+
+    row = dict(tree=tree)
+    measure_p1(row)
+    row["log"] = str(_build.library_path().with_suffix(".log"))
+    if p1_only:
+        return row
 
     from fbstab_tpu_torch.models.dense_qp import solve_dense_qp_batch
     from fbstab_tpu_torch.models.mpc_qp import (
@@ -120,7 +206,6 @@ def measure(tree: str) -> dict:
     from fbstab_tpu_torch.models.scaling import (
         apply_dense_scaling, apply_mpc_scaling, ruiz_dense_scaling,
         ruiz_mpc_scaling)
-    from fbstab_tpu_torch.ops import _build
     from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
     from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
     from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
@@ -141,7 +226,6 @@ def measure(tree: str) -> dict:
         args = k1_inputs(data)
         return cuda_ms(lambda: riccati_newton_step_batched(data, *args), 5)
 
-    row = dict(tree=tree)
     row["k1_headline_ms"] = k1_ms(
         equilibrated(build_batch(8192, **HEADLINE, device=dev)))
     row["k1_copoly_ms"] = k1_ms(equilibrated(build_copoly(2048, dev)))
@@ -194,31 +278,40 @@ def measure(tree: str) -> dict:
         for mode in ("scan", "assoc"):
             row["longhorizon_ms"][f"{mode} N={N}"] = best(
                 lambda: solve_mpc_qp(data, *guess, opts, riccati=mode), 3)
-    row["log"] = str(_build.library_path().with_suffix(".log"))
     return row
 
 
 def main():
     if sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2])), flush=True)
+        print(json.dumps(measure(sys.argv[-1], "--p1" in sys.argv)),
+              flush=True)
         return
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     from fbstab_tpu_torch.ops._build import ptxas_lines
 
-    for tree in sys.argv[1:]:
-        proc = subprocess.run([sys.executable, __file__, "--one", tree],
+    p1_only = sys.argv[1] == "--p1"
+    for tree in sys.argv[1 + p1_only:]:
+        proc = subprocess.run([sys.executable, __file__, "--one",
+                               *(["--p1"] if p1_only else []), tree],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stdout.write(proc.stdout)
             sys.stderr.write(proc.stderr)
             sys.exit(proc.returncode)
         row = json.loads(proc.stdout.strip().splitlines()[-1])
-        log = Path(row.pop("log")).read_text()
-        row.update(k1_ptxas=ptxas_lines("riccati.cu", log),
-                   k2_ptxas=ptxas_lines("mpc_solve.cu", log),
-                   k3_ptxas=ptxas_lines("dense_solve.cu", log),
-                   k4_ptxas=ptxas_lines("mpc_subproblem.cu", log),
-                   k5_ptxas=ptxas_lines("assoc_combine.cu", log))
+        log = Path(row["log"]).read_text()
+        if not p1_only:
+            row.update(k1_ptxas=ptxas_lines("riccati.cu", log),
+                       k2_ptxas=ptxas_lines("mpc_solve.cu", log),
+                       k3_ptxas=ptxas_lines("dense_solve.cu", log),
+                       k4_ptxas=ptxas_lines("mpc_subproblem.cu", log),
+                       k5_ptxas=ptxas_lines("assoc_combine.cu", log))
+        lib = Path(row["log"]).with_suffix(".so")
+        for key, entries in P1_ENTRIES.items():
+            row[key] = [ln for e in entries
+                        for ln in ptxas_lines("mxu_probe.cu", log, e)]
+            row[key.replace("ptxas", "sass")] = sass_opcodes(lib, entries)
+        del row["log"]
         print(json.dumps(row), flush=True)
 
 

@@ -279,6 +279,33 @@ def test_tc_shared_kernel_matches_plain_version():
     _card_probe_case(p1.tc_shared, "shared")
 
 
+def test_ptxas_lines_keep_the_named_kernels_of_a_source():
+    """P1's CUDA-core forms are compiled for every n up to the cap, so the
+    build log holds dozens of their entries; `ptxas_lines` with `entry`
+    keeps the register and spill lines of the kernels whose names hold it
+    (chip_smoke.py and tools/ab_mpc.py read the n = 18 ones), and without
+    it every line of the source, none of the next source's."""
+    from fbstab_tpu_torch.ops._build import ptxas_lines
+
+    def entry(name, regs):
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+                f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                f"spill loads\nptxas info    : Used {regs} registers, used 0 "
+                f"barriers\n")
+    log = ("== mxu_probe.cu\nptxas info    : 0 bytes gmem\n"
+           + entry("_ZN1_17stage_matvec_teamILi17ELb1EEEv", 70)
+           + entry("_ZN1_17stage_matvec_teamILi18ELb1EEEv", 168)
+           + entry("_ZN1_17stage_matvec_teamILi18ELb0EEEv", 150)
+           + "== riccati.cu\n" + entry("_ZN1_9riccati_kEv", 128))
+    assert ptxas_lines("mxu_probe.cu", log, "stage_matvec_teamILi18ELb1E") == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 0 barriers"]
+    assert len(ptxas_lines("mxu_probe.cu", log)) == 6
+    assert ptxas_lines("riccati.cu", log)[-1].endswith(
+        "Used 128 registers, used 0 barriers")
+
+
 # ------------------------------------------------------------------
 # P3, the double-float probe.
 # ------------------------------------------------------------------

@@ -11,7 +11,9 @@ host threads, which stage their operands or work in place as the card's
 teams do. The replayed Newton step (K1) must match its plain version
 within 1e-10 and, on every team, give the team of one's bits; so must the
 scan-level combine (K5); K2 and K3 on teams must take the plain solvers'
-decisions. This pins the per-lane semantics of the
+decisions. P1's two CUDA-core forms must match their plain versions within
+1e-12 and give the team of one's bits on every team. This pins the
+per-lane semantics of the
 stall guard, the linesearch and the exit checks, which float32 knife edges
 hide on the card (chip_smoke.py bounds the float32 Newton counts there).
 The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
@@ -84,6 +86,7 @@ def lib(tmp_path_factory):
     lib.fb_mpc_subproblem.argtypes = [I] * 5 + [SolveOpts64] + [P] * 32
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
+    lib.fb_mxu_probe.argtypes = [I] * 5 + [D] + [P] * 3
     for fn in (lib.fb_replay_set_team, lib.fb_replay_set_stages):
         fn.argtypes = [I]
         fn.restype = None
@@ -536,3 +539,46 @@ def test_replayed_df_transforms_are_exact_and_bit_equal_to_plain(lib):
     assert v["dot_rel_err"] < 1e-3 * v["f32_dot_rel_err"]
     for got, want in zip(outs, df_probe_plain(a, b)):
         assert torch.equal(got, want)
+
+
+# Host teams for P1: up to 32 threads; the kernels' teams of 3, 6 and 9
+# (the candidates at n = 18) among them.
+P1_TEAMS = (1, 2, 3, 4, 6, 8, 9, 32)
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("B", [40, 128])
+@pytest.mark.parametrize("n", [5, 18, 32])
+@pytest.mark.parametrize("form", ["perlane", "shared"])
+def test_replayed_probe_matches_plain_probe(lib, form, n, B, T):
+    """P1's CUDA-core forms (csrc/mxu_probe.cuh) replayed in float64 on
+    three stages: within 1e-12 of the plain version (relative to its
+    largest entry), and on every team of more than one host thread (each
+    holding ceil(n / T) rows; at n = 5 the last thread of a team of 2, 4
+    or 8 holds a row beyond n) the team of one's bits, since every row's
+    sum is taken by one thread in the team of one's order. n = 5 is a
+    stage that the rows a thread holds do not divide, n = 18 the probe's,
+    n = 32 the cap; B = 40 leaves a ragged lane chunk."""
+    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
+
+    N1 = 3
+    Mp, Ms, w0 = p1.probe_inputs(N1, n, B, device="cpu",
+                                 dtype=torch.float64)
+    M, plain = ((Mp, p1.perlane_plain) if form == "perlane"
+                else (Ms, p1.shared_plain))
+    scale = p1.scale_of(n)
+    want = plain(M, w0, T, scale)
+    one = None
+    for team in P1_TEAMS:
+        got = torch.full_like(w0, float("nan"))
+        with on_team(lib, team):
+            assert lib.fb_mxu_probe(0 if form == "perlane" else 1, N1, n, B,
+                                    T, scale, M.data_ptr(), w0.data_ptr(),
+                                    got.data_ptr()) == 0
+        if one is None:
+            one = got
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=0,
+                atol=1e-12 * want.abs().max().item())
+        else:
+            assert torch.equal(got, one), team

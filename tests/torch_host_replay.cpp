@@ -5,12 +5,14 @@
 // of the CUDA library with double in place of float, in the kernels'
 // layouts (K3, K5 batch-last; K1, K2, K4 instance-major, with each
 // instance's stage block in a buffer of its own where the kernels keep it
-// in shared memory). K1, K2 and K4 also run on a team of T host threads
+// in shared memory). K1-K5 also run on a team of T host threads
 // (fb_replay_set_team): the kernels' split of the work, with a barrier for
 // the tile's sync and the same xor-butterfly reductions; such a team stages
 // each stage's operands as the card's teams do, or, after
 // fb_replay_set_stages(0), works in place as K1's teams do at stages too
-// large for a block's shared memory.
+// large for a block's shared memory. P1's two CUDA-core forms run each
+// (stage, lanes) team on the threads that a team of at most T threads
+// needs (any T from 1 to 32), with a barrier for the warp's sync.
 // tests/test_torch_device_code.py builds it with the host compiler and
 // holds it lane for lane against the plain float64 versions of the
 // kernels.
@@ -54,6 +56,7 @@ extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
 #include "assoc_combine.cuh"
 #include "dense_solve.cuh"
 #include "mpc_solve.cuh"
+#include "mxu_probe.cuh"
 
 // A team of T host threads standing in for Team<T> (fbstab_common.cuh).
 // Every exchange of values goes through a slot per thread between two
@@ -333,6 +336,38 @@ int fb_assoc_combine(int n, int M, int B, const long long* strides,
                          Lane{(Tm::kStages ? stage : scratch).data(), 1});
     });
   }
+  return 0;
+}
+
+// P1's forms 0 (per-lane M) and 1 (shared M) without the stream argument:
+// every (stage, lanes) team in turn on the host threads that a team of at
+// most g_team threads needs, with the kernel's lanes per thread.
+int fb_mxu_probe(int form, int N1, int n, int B, int T, float scale,
+                 const float* M, const float* w0, float* w) {
+  if (n < 1 || n > kMxuMaxN || form < 0 || form > 1) return 1;
+  const int c = form == 0 ? 1 : kSharedLanes;
+  const P1Dyn d{n, p1_rows(n, g_team), c};
+  const int G = p1_threads(n, g_team), chunks = (B + c - 1) / c;
+  std::vector<float> buf(2 * p1_buf_floats(n, c));
+  float* buf1 = buf.data() + p1_buf_floats(n, c);
+  std::barrier<> bar(G);
+  const auto sync = [&bar] { bar.arrive_and_wait(); };
+  const auto body = [&](int k) {
+    for (long long t = 0; t < (long long)N1 * chunks; ++t) {
+      const long long s = t / chunks;
+      const int b0 = (int)(t % chunks) * c;
+      if (form == 0)
+        p1_team<true>(d, sync, true, k, s, b0, B, T, scale, M, w0, w,
+                      buf.data(), buf1);
+      else
+        p1_team<false>(d, sync, true, k, s, b0, B, T, scale, M, w0, w,
+                       buf.data(), buf1);
+    }
+  };
+  std::vector<std::thread> threads;
+  for (int k = 1; k < G; ++k) threads.emplace_back(body, k);
+  body(0);
+  for (auto& t : threads) t.join();
   return 0;
 }
 
