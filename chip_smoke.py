@@ -33,13 +33,18 @@ fatal on failure:
      version as the yardstick of float32 rounding, and its design line;
   8. P1, the stage-matvec probe: the bench's mxu mode (N1 = 81, n = 18,
      B = 128, T = 200), then its three kernels against their plain versions
-     at T = 1 and 8, with times, library calls and bounds at T = 200 and
+     at T = 1 and 8, with times (the wrapper's, as `ms`, and on the device
+     from CUDA graph replays, as `device_ms`), library calls and bounds at
+     T = 200 and
      each one's design line (threads per team, rows and lanes a thread,
-     registers, spill bytes, shared bytes, blocks per SM, waves); the two
-     CUDA-core forms also at n = 5 and 32 (B = 40);
+     or n-tiles and lanes a warp, registers, spill bytes, shared bytes,
+     blocks per SM, waves); every form also at n = 5 and 32 (B = 40);
   9. P3, the double-float probe: the probe tool's run, bit equality with
-     the plain version, exactness against float64, and the same source
-     built with plain operators (does nvcc contract them?);
+     the plain version, exactness against float64, the wrapper's time
+     (`ms`) and the kernel's device time apart from the host (CUDA graph
+     replays, `device_ms`) beside the card's launch floor (`floor_ms`),
+     and the same source built with plain
+     operators (does nvcc contract them?);
  10. the one-shot MPC path, solve_mpc_qp_batch(...,
      Options.single_precision()), at B = 8192, N = 30, nx = 8, nu = 3,
      nc = 6 (the bench.build_batch generator, seed 0), checked in float64
@@ -65,7 +70,8 @@ fatal on failure:
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: for K1-K5 a team of T threads per instance, or per pair and
 instance for K5, on instance-major data; for P1's CUDA-core forms a team
-per stage and lanes with its register tile; K1's row also holds each K1
+per stage and lanes with its register tile, for its tensor-core form a
+warp per stage and 16 lanes; K1's row also holds each K1
 shape's numbers under `shapes`, K3's its two batches'), the last line
 {"ok": true, "device": {...}}.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -95,8 +101,8 @@ from fbstab_tpu_torch.perf_model import (
     stage_matvec_flops)
 from fbstab_tpu_torch.workloads import (
     COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
-    cuda_ms, dense_f64_residual, dense_zeros, mpc_f64_residual,
-    newton_step_args, timed, zeros_guess)
+    cuda_ms, dense_f64_residual, dense_zeros, graph_ms, launch_floor_ms,
+    mpc_f64_residual, newton_step_args, timed, zeros_guess)
 
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
 # Fused solver (K2, K3) against its plain version, both in float32.
@@ -186,9 +192,10 @@ def design_line(name, source, info_fn, dims, per="instance"):
             + ("" if info["smem_bytes"] else ", stage block in device memory"))
 
 
-# P1's kernels in the build log at the probe's n = 18, by form.
+# P1's kernels in the build log at the probe's n = 18 (tc_shared: NT = 3
+# n-tiles of 8), by form.
 P1_ENTRIES = ("stage_matvec_teamILi18ELb1E", "stage_matvec_teamILi18ELb0E",
-              "stage_matvec_tensor_cores")
+              "stage_matvec_tcILi3E")
 
 
 def p1_design_line(form, n, N1, B):
@@ -202,7 +209,9 @@ def p1_design_line(form, n, N1, B):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = info["blocks_per_sm"] * sms
     if form == 2:
-        design = "a warp per (stage, 8-lane tile), TF32 mma.sync"
+        design = (f"a warp per (stage, {info['lanes']} lanes), "
+                  f"{info['rows']} n-tiles of TF32 mma.sync m16n8k8, w in "
+                  f"registers for all T (no shared memory, no sync)")
     else:
         design = (f"team of {info['team']} per (stage, {info['lanes']} "
                   f"lane{'s' if info['lanes'] > 1 else ''}), "
@@ -834,9 +843,10 @@ def phase_assoc_batch(B, device):
     return n
 
 
-# P1's CUDA-core forms are compiled for each n: beside the probe's n = 18
-# they are held at a stage that the rows a thread holds do not divide and
-# at the cap, on a ragged lane count.
+# P1's CUDA-core forms are compiled for each n, the tensor-core form for
+# each number of n-tiles: beside the probe's n = 18 they are held at a
+# stage that the rows a thread holds do not divide (one n-tile, mostly
+# padding) and at the cap (four full n-tiles), on a ragged lane count.
 P1_OTHER_SHAPES = ((5, 40), (32, 40))
 
 
@@ -845,7 +855,7 @@ def phase_p1(device):
     launches are counted), then each form against its plain version at
     T = 1 and 8 (the iterate underflows to zero long before the probe's
     T = 200), the times at T = 200, the library calls, the bounds and the
-    design line; the CUDA-core forms also at P1_OTHER_SHAPES."""
+    design line; every form also at P1_OTHER_SHAPES."""
     from fbstab_tpu_torch import bench
     from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
 
@@ -882,16 +892,16 @@ def phase_p1(device):
         M = mats[kind]
         errs, max_abs, good = against_plain(kernel, kind, M, w0, n_, scale)
         ok = ok and good
-        if kernel is not p1.tc_shared:
-            for n_o, B_o in P1_OTHER_SHAPES:
-                Mp_o, Ms_o, w0_o = p1.probe_inputs(N1, n_o, B_o, device)
-                e_o, _, good = against_plain(
-                    kernel, kind, Mp_o if kind == "perlane" else Ms_o, w0_o,
-                    n_o, p1.scale_of(n_o))
-                ok = ok and good
-                print(f"P1 {name} ({kernel.__name__}) at n={n_o} B={B_o}: "
-                      f"vs plain " + "; ".join(e_o))
+        for n_o, B_o in P1_OTHER_SHAPES:
+            Mp_o, Ms_o, w0_o = p1.probe_inputs(N1, n_o, B_o, device)
+            e_o, _, good = against_plain(
+                kernel, kind, Mp_o if kind == "perlane" else Ms_o, w0_o,
+                n_o, p1.scale_of(n_o))
+            ok = ok and good
+            print(f"P1 {name} ({kernel.__name__}) at n={n_o} B={B_o}: "
+                  f"vs plain " + "; ".join(e_o))
         ms = cuda_ms(lambda: kernel(M, w0, T, scale), 5)
+        device_ms = graph_ms(lambda: kernel(M, w0, T, scale))
         plain_ms = cuda_ms(lambda: plain[kind](M, w0, T, scale), 3)
         flops = stage_matvec_flops(N1, n_, B, T)
         moved = nbytes(M, w0, w0)
@@ -921,7 +931,9 @@ def phase_p1(device):
         library_ms = (lib_ms["bmm tf32"] if kernel is p1.tc_shared
                       else next(iter(lib_ms.values())))
         print(f"P1 {name} ({kernel.__name__}): vs plain "
-              + "; ".join(errs) + f" | T={T}: kernel {ms:.4f} ms, "
+              + "; ".join(errs) + f" | T={T}: kernel {ms:.4f} ms (5 "
+              f"wrapper calls), on the device {device_ms:.4f} ms (CUDA graph "
+              f"of 20 launches, 10 replays), "
               f"{record[name + '_ns']} ns per stage-matvec (host clock), "
               f"plain {plain_ms:.3f} ms, library " + ", ".join(
                   f"{k} {v:.3f} ms" for k, v in lib_ms.items())
@@ -930,7 +942,8 @@ def phase_p1(device):
                  "peak" if kernel is p1.tc_shared else "") + ")")
         rows[kernel.__name__] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms, design=design)
+            bound_by=bound_by, library_ms=library_ms, design=design,
+            device_ms=device_ms)
     if not ok:
         fail("a P1 form disagrees with its plain version")
     if min(n["P1_perlane"], n["P1_shared"], n["P1_tc"]) < 1:
@@ -941,10 +954,14 @@ def phase_p1(device):
 def phase_p3(device):
     """P3, the double-float probe: the probe tool's run (its path, whose
     launch is counted), bit equality with the plain version, exactness
-    against float64, and the contraction question: the same source built
-    with plain operators, run and its SASS read for FFMA."""
+    against float64, the wrapper's time (20 calls back to back), the
+    kernel's device time apart from the host (20 launches on buffers made
+    once, captured into a CUDA graph, replayed 10 times between CUDA
+    events) beside the card's launch floor timed the same way, and the
+    contraction question: the same
+    source built with plain operators, run and its SASS read for FFMA."""
     from fbstab_tpu_torch.ops import df_probe_cuda as p3
-    from fbstab_tpu_torch.ops._build import library_path
+    from fbstab_tpu_torch.ops._build import library_path, load_library
     from fbstab_tpu_torch.tools import df_probe as tool
 
     counts = reset_launches()
@@ -959,18 +976,26 @@ def phase_p3(device):
     v_plain = p3.exactness(a, b, p3.launch_df_probe(plain_lib, a, b))
     ffma = p3.sass_ffma_count(library_path())
     ffma_plain = p3.sass_ffma_count(plain_path)
+    lib, out = load_library(), p3.df_probe_outputs(a)
+    launch = lambda: p3.launch_df_probe(lib, a, b, out)
     ms = cuda_ms(lambda: p3.df_probe(a, b), 20)
+    device_ms = graph_ms(launch)
+    floor_ms = launch_floor_ms(a.device)
     plain_ms = cuda_ms(lambda: p3.df_probe_plain(a, b), 5)
     R, C = a.shape
-    # two_sum 6, two_prod 17 and a dot step 31 operations per element.
-    bound_ms, bound_by = bound(54 * R * C, nbytes(a, b, *got))
+    # two_sum 6 and two_prod 17 operations per element, and the dot step's
+    # 14 on two_prod's pair.
+    bound_ms, bound_by = bound(37 * R * C, nbytes(a, b, *got))
     fmt = lambda v: (f"two_sum exact: {v['two_sum_exact']}  two_prod exact: "
                      f"{v['two_prod_exact']}  dot df rel err: "
                      f"{v['dot_rel_err']:.2e} (plain f32: "
                      f"{v['f32_dot_rel_err']:.2e})")
     print(f"P3: [cuda] {fmt(verdict)} | bit-equal to the plain version: "
-          f"{same} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.6f} ms ({bound_by})")
+          f"{same} | kernel {ms:.4f} ms (20 wrapper calls), on the device "
+          f"{device_ms:.4f} ms a launch (CUDA graph of 20 launches, 10 "
+          f"replays), launch floor {floor_ms:.4f} ms (a one-element add_ "
+          f"the same way), plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})")
     print(f"P3 contraction: intrinsics (the library): FFMA in the kernel's "
           f"SASS {ffma}; plain operators with the library's flags: FFMA "
           f"{ffma_plain}, {fmt(v_plain)}")
@@ -979,7 +1004,8 @@ def phase_p3(device):
     if n["P3"] < 1:
         fail("the probe tool did not launch P3")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None), n
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                device_ms=device_ms, floor_ms=floor_ms), n
 
 
 def phase_warmstart(B, device, steps=8):

@@ -8,9 +8,14 @@
 // lo, with the transforms of doublefloat.cuh.
 //
 // Design: one thread per column walks its R rows in order (the dot is a
-// sequential accumulation, as in the reference). What bounds it: the
-// bytes, 2 R C floats in and 4 R C + 2 C out, a few KB; the launch is
-// the whole cost.
+// sequential accumulation, as in the reference), and the dot step takes
+// the elementwise two_prod's pair instead of forming it again. What bounds
+// it: the bytes, 2 R C floats in and 4 R C + 2 C out, a few KB, 7.6 ns at
+// the memory rate. Measured on an H100 (PERF.md §6): on the device (CUDA
+// graph replays) a launch is within 1 us of the card's launch floor,
+// ~1.3 us; the wrapper called back to back takes 30-60 us a call, all of
+// it the host's. Unrolled by R, so that the rows' loads overlap, the
+// kernel ran 0.5 us slower a launch.
 #include <cuda_runtime.h>
 
 #include "doublefloat.cuh"
@@ -26,9 +31,15 @@ __global__ void df_probe_kernel(int R, int C, const float* __restrict__ a,
   float hi = 0.0f, lo = 0.0f;
   for (int r = 0; r < R; ++r) {
     const long long k = (long long)r * C + c;
-    df_two_sum(a[k], b[k], s[k], e[k]);
-    df_two_prod(a[k], b[k], p[k], pe[k]);
-    df_dot_step(a[k], b[k], hi, lo);
+    const float x = a[k], y = b[k];
+    float sx, ex, px, pex;
+    df_two_sum(x, y, sx, ex);
+    df_two_prod(x, y, px, pex);
+    df_dot_add(px, pex, hi, lo);
+    s[k] = sx;
+    e[k] = ex;
+    p[k] = px;
+    pe[k] = pex;
   }
   dh[c] = hi;
   dl[c] = lo;

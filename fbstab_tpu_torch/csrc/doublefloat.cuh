@@ -57,10 +57,11 @@ FB_DF_FN void df_two_prod(float a, float b, float& p, float& e) {
       FB_DF_MUL(a_lo, b_lo));
 }
 
-// One step of the compensated dot product: (hi, lo) += a * b.
-FB_DF_FN void df_dot_step(float a, float b, float& hi, float& lo) {
-  float ph, pl, e1, e2;
-  df_two_prod(a, b, ph, pl);
+// One step of the compensated dot product, (hi, lo) += a * b, given a * b
+// as two_prod's pair (ph, pl) = df_two_prod(a, b): the caller that also
+// needs the pair computes it once.
+FB_DF_FN void df_dot_add(float ph, float pl, float& hi, float& lo) {
+  float e1, e2;
   df_two_sum(hi, ph, hi, e1);
   lo = FB_DF_ADD(lo, FB_DF_ADD(e1, pl));
   df_two_sum(hi, lo, hi, e2);

@@ -12,9 +12,9 @@
 //
 //   form 0, cuda_perlane (vpu_perlane): per-lane M on the CUDA cores;
 //   form 1, cuda_shared  (vpu_shared):  shared M on the CUDA cores;
-//   form 2, tc_shared    (mxu_shared):  shared M as one TF32 tensor-core
-//                                       product per stage (mma.sync
-//                                       m16n8k8, n padded to 32 x 8k).
+//   form 2, tc_shared    (mxu_shared):  shared M on the TF32 tensor
+//                                       cores (mma.sync m16n8k8, w in
+//                                       registers for all T).
 //
 // The recurrence never mixes stages or lanes, so every team keeps its
 // slice resident for all T applications and the T loop runs inside the
@@ -45,13 +45,21 @@
 //    takes ~350 cycles against ~250 issue slots a scheduler and ~200 for
 //    the FMAs alone at full lanes; the per-lane form's M (13.4 MB) adds
 //    ~3 us before the first application.
-//  - tc_shared: a block per (stage, 4 tiles of 8 lanes), a warp per tile.
-//    The padded M_s (32 x 32, zeros beyond n) is loaded once and
-//    converted to TF32 A fragments held in registers for all T; each warp
-//    keeps its tile of w_s (32 x 8, rows >= n zero) in shared memory and
-//    per application loads the B fragments, runs 2 (m) x ceil(n/8) (k)
-//    MMAs, scales and writes rows < n back. Tiles are independent:
-//    __syncwarp. Bound: 2.7 us at the TF32 tensor peak.
+//  - tc_shared (mxu_probe.cuh, p1_tc_warp): a warp per (stage, 16 lanes)
+//    computes w_s^T <- scale * (w_s^T M_s^T) on TF32 MMAs, n padded to
+//    NT = ceil(n / 8) tiles (a template parameter, 1 .. 4). Its bound is
+//    the same operations at the TF32 tensor peak, 2.7 us; but one
+//    application is NT x NT MMAs a warp, and 200 of them in a row have a
+//    latency floor far above that: T times one application's latency.
+//    So the design shortens the chain an application: B (M_s^T) is
+//    loaded once, in the contraction order pi, which makes D's registers
+//    the next A fragment, and an application runs register to register
+//    (the MMAs, the float32 scale, a cvt.rna.tf32 a value): no shared
+//    memory, no shuffle, no sync. At the probe's shape, 648 warps, one
+//    wave. What is left (H100 at 1980 MHz, PERF.md §6): an application
+//    takes ~270 cycles for its 9 MMAs a warp, so T = 200 takes ~0.03 ms;
+//    the MMAs' issue, not their dependence, sets it (a partial product
+//    per k-tile, two tiles a warp, or wgmma from a warpgroup: all slower).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,9 +67,8 @@
 
 namespace {
 
-constexpr int kP1Warps = 4;     // warps per block, CUDA-core forms
-constexpr int kMaxN = kMxuMaxN; // tc_shared pads M_s to kMaxN x kMaxN
-constexpr int kTcWarps = 4;     // warps (8-lane tiles) per block, tc form
+constexpr int kP1Warps = 4;  // warps per block, CUDA-core forms
+constexpr int kTcWarps = 4;  // warps per block, tc_shared
 
 // The split of form 0 (kPerLane) or 1 at stage size N: C lanes and R rows
 // a thread, G threads a team, P teams a warp; a block holds two copies of
@@ -113,95 +120,45 @@ int stage_matvec_team_blocks(int N1, int B) {
   return (int)((teams + Sp::teams_per_block - 1) / Sp::teams_per_block);
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// The warp's TF32 m16n8k8 on the thread's fragments: cvt.rna rounds a
+// float32 to TF32 (10 mantissa bits, to nearest, ties away from zero).
+struct TcMma {
+  using Reg = uint32_t;
+  __device__ __forceinline__ Reg cvt(float x) const {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+  }
+  // d += a b, float32 sums.
+  __device__ __forceinline__ void operator()(float (&d)[4], const Reg (&a)[4],
+                                             const Reg (&b)[2]) const {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+// Warp w of the grid runs stage w / tc_warps_per_stage(B), its tile of
+// lanes w % tc_warps_per_stage(B); a warp beyond the last stage returns
+// whole (mma.sync is per warp).
+template <int NT>
+__global__ void __launch_bounds__(32 * kTcWarps)
+    stage_matvec_tc(int N1, int n, int B, int T, float scale,
+                    const float* __restrict__ M,
+                    const float* __restrict__ w0, float* __restrict__ w) {
+  const long long warp = (long long)blockIdx.x * kTcWarps + threadIdx.x / 32;
+  const int tiles = tc_warps_per_stage(B);
+  const long long s = warp / tiles;
+  if (s >= N1) return;
+  p1_tc_warp<NT>(TcMma{}, threadIdx.x % 32, s,
+                 (int)(warp % tiles) * kTcLanes, n, B, T, scale, M, w0,
+                 w);
 }
 
-// D += A B for one m16n8k8 TF32 tile, float32 accumulation.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void stage_matvec_tensor_cores(int n, int B, int T, float scale,
-                                          const float* __restrict__ M,
-                                          const float* __restrict__ w0,
-                                          float* __restrict__ w_out) {
-  __shared__ float msh[kMaxN * kMaxN];            // padded M_s, row-major
-  __shared__ float wsh[kTcWarps][kMaxN * 8];      // per warp: w tile (k, col)
-  const int s = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;       // groupID
-  const int q = lane & 3;        // threadID_in_group
-  const int col0 = (blockIdx.x * kTcWarps + warp) * 8;
-  const int KT = (n + 7) / 8;
-
-  for (int idx = threadIdx.x; idx < kMaxN * kMaxN; idx += blockDim.x) {
-    const int r = idx / kMaxN, c = idx % kMaxN;
-    msh[idx] = (r < n && c < n) ? M[((long long)s * n + r) * n + c] : 0.0f;
-  }
-  float* wt = wsh[warp];
-  for (int idx = lane; idx < kMaxN * 8; idx += 32) {
-    const int k = idx / 8, c = idx % 8;
-    const int b = col0 + c;
-    wt[idx] = (k < n && b < B) ? w0[((long long)s * n + k) * B + b] : 0.0f;
-  }
-  __syncthreads();
-
-  // A fragments (PTX m16n8k8 .tf32 layout): a0 (g, q), a1 (g+8, q),
-  // a2 (g, q+4), a3 (g+8, q+4) of the 16 x 8 tile (mt, kt).
-  uint32_t a[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      const int r = mt * 16 + g, c = kt * 8 + q;
-      a[mt][kt][0] = to_tf32(msh[r * kMaxN + c]);
-      a[mt][kt][1] = to_tf32(msh[(r + 8) * kMaxN + c]);
-      a[mt][kt][2] = to_tf32(msh[r * kMaxN + c + 4]);
-      a[mt][kt][3] = to_tf32(msh[(r + 8) * kMaxN + c + 4]);
-    }
-
-  for (int t = 0; t < T; ++t) {
-    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kt = 0; kt < 4; ++kt) {
-      if (kt < KT) {
-        // B fragment: b0 (row q, col g), b1 (row q+4, col g).
-        const uint32_t b0 = to_tf32(wt[(kt * 8 + q) * 8 + g]);
-        const uint32_t b1 = to_tf32(wt[(kt * 8 + q + 4) * 8 + g]);
-        mma_tf32(d[0], a[0][kt], b0, b1);
-        mma_tf32(d[1], a[1][kt], b0, b1);
-      }
-    }
-    __syncwarp();
-    // D fragment: d0 (g, 2q), d1 (g, 2q+1), d2 (g+8, 2q), d3 (g+8, 2q+1).
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r0 = mt * 16 + g, r1 = r0 + 8;
-      if (r0 < n) {
-        wt[r0 * 8 + 2 * q] = d[mt][0] * scale;
-        wt[r0 * 8 + 2 * q + 1] = d[mt][1] * scale;
-      }
-      if (r1 < n) {
-        wt[r1 * 8 + 2 * q] = d[mt][2] * scale;
-        wt[r1 * 8 + 2 * q + 1] = d[mt][3] * scale;
-      }
-    }
-    __syncwarp();
-  }
-  for (int idx = lane; idx < n * 8; idx += 32) {
-    const int k = idx / 8, c = idx % 8;
-    const int b = col0 + c;
-    if (b < B) w_out[((long long)s * n + k) * B + b] = wt[idx];
-  }
+int stage_matvec_tc_blocks(int N1, int B) {
+  const long long warps = (long long)N1 * tc_warps_per_stage(B);
+  return (int)((warps + kTcWarps - 1) / kTcWarps);
 }
 
 // Calls f.template go<N>() for the stage size N = n in 1 .. kMxuMaxN.
@@ -212,6 +169,20 @@ int with_n(int n, const F& f) {
   else
     return n == N ? f.template go<N>() : with_n<N + 1>(n, f);
 }
+
+struct TcLaunch {
+  int N1, n, B, T;
+  float scale;
+  const float *M, *w0;
+  float* w;
+  cudaStream_t st;
+  template <int NT>
+  int go() const {
+    stage_matvec_tc<NT><<<stage_matvec_tc_blocks(N1, B), 32 * kTcWarps, 0,
+                          st>>>(N1, n, B, T, scale, M, w0, w);
+    return (int)cudaGetLastError();
+  }
+};
 
 struct TeamLaunch {
   int form, N1, B, T;
@@ -270,6 +241,21 @@ struct TeamInfo {
   }
 };
 
+struct TcInfo {
+  int N1, B;
+  int* info;
+  template <int NT>
+  int go() const {
+    info[0] = 32;
+    info[1] = kTcWarps;
+    fill_info(stage_matvec_tc<NT>, 32 * kTcWarps, 0, info);
+    info[6] = NT;
+    info[7] = kTcLanes;
+    info[8] = stage_matvec_tc_blocks(N1, B);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -278,23 +264,17 @@ extern "C" {
 int fb_mxu_max_n() { return kMxuMaxN; }
 
 // The launch of form `form` at stage size n for N1 stages of B lanes:
-// info[0] threads per team (a warp per 8-lane tile for form 2),
-// info[1] teams per block, info[2] registers per thread, info[3] local
-// (spill) bytes per thread, info[4] shared bytes per block, info[5]
-// resident blocks per SM, info[6] rows and info[7] lanes a thread holds
-// (0 for form 2), info[8] blocks of the grid. Returns cudaGetLastError(),
+// info[0] threads per team (form 2: a warp), info[1] teams per block,
+// info[2] registers per thread, info[3] local (spill) bytes per thread,
+// info[4] shared bytes per block, info[5] resident blocks per SM, info[6]
+// rows and info[7] lanes a thread holds (form 2: n-tiles NT and lanes a
+// warp), info[8] blocks of the grid. Returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a form or n the kernels do not take.
 int fb_mxu_probe_info(int form, int n, int N1, int B, int* info) {
   if (n < 1 || n > kMxuMaxN || form < 0 || form > 2)
     return (int)cudaErrorInvalidValue;
   if (form < 2) return with_n(n, TeamInfo{form, N1, B, info});
-  info[0] = 32;
-  info[1] = kTcWarps;
-  fill_info(stage_matvec_tensor_cores, 32 * kTcWarps, 0, info);
-  info[6] = 0;
-  info[7] = 0;
-  info[8] = (B + 8 * kTcWarps - 1) / (8 * kTcWarps) * N1;
-  return (int)cudaGetLastError();
+  return tc_with_nt(n, TcInfo{N1, B, info});
 }
 
 // Launches form 0 (cuda_perlane), 1 (cuda_shared) or 2 (tc_shared) on
@@ -309,10 +289,7 @@ int fb_mxu_probe(int form, int N1, int n, int B, int T, float scale,
   cudaStream_t st = (cudaStream_t)stream;
   if (form < 2)
     return with_n(n, TeamLaunch{form, N1, B, T, scale, M, w0, w, st});
-  const dim3 grid((B + 8 * kTcWarps - 1) / (8 * kTcWarps), N1);
-  stage_matvec_tensor_cores<<<grid, 32 * kTcWarps, 0, st>>>(
-      n, B, T, scale, M, w0, w);
-  return (int)cudaGetLastError();
+  return tc_with_nt(n, TcLaunch{N1, n, B, T, scale, M, w0, w, st});
 }
 
 }  // extern "C"

@@ -203,3 +203,136 @@ FB_DEV void p1_team(const S& d, const Sync& sync, bool live, int k,
     }
   }
 }
+
+// ---------------------------------------------------------------------
+// Form 2, tc_shared: the same recurrence on the TF32 tensor cores, the
+// product transposed, w_s^T <- scale * (w_s^T M_s^T), per (stage s, tile of
+// 16 lanes), one warp a tile, with mma.sync m16n8k8 (.row.col, TF32
+// operands, float32 sums): A is w_s^T (16 lanes x k), B is M_s^T (k x
+// outputs), D is 16 lanes x 8 outputs per n-tile; n is padded to NT =
+// ceil(n / 8) tiles of 8, with zeros in M beyond n, so outputs >= n stay
+// exactly zero for all T, and lanes >= B start at zero.
+//
+// The contraction order carries the layout. Thread (g, q) = (lane >> 2,
+// lane & 3) of the warp holds D's outputs 2q, 2q + 1 of each n-tile for
+// lanes g and g + 8; the next application's A fragment wants, in the
+// hardware's order, columns q and q + 4 of each k-tile for the same lanes.
+// Inside every block of 8, column (or B row) p of the hardware's tile
+// stands for contraction index pi(p): 2p for p < 4, 2(p - 4) + 1 beyond.
+// With B loaded in that order, D's registers are the next A fragment:
+// a0 = d0, a1 = d2, a2 = d1, a3 = d3. An application is NT x NT MMAs, the
+// scale (float32, after the sum, as the plain version) and a cvt.rna.tf32
+// a value, register to register: no shuffle, no shared memory, no sync.
+//
+// The maps below give, for register r of thread (g, q), the (lane, k) of A,
+// the (k, output) of B and the (lane, output) of D it holds inside one
+// tile, k the contraction index after pi.
+
+// Column (or B row) p of the hardware's k-tile stands for index pi(p).
+FB_HD constexpr int tc_pi(int p) { return p < 4 ? 2 * p : 2 * (p - 4) + 1; }
+// A (m16 x k8, row): register r at row g + 8 (r & 1), column q + 4 (r >> 1).
+FB_HD constexpr int tc_a_lane(int g, int r) { return g + 8 * (r & 1); }
+FB_HD constexpr int tc_a_k(int q, int r) { return tc_pi(q + 4 * (r >> 1)); }
+// B (k8 x n8, col): register r at row q + 4 r, column g.
+FB_HD constexpr int tc_b_k(int q, int r) { return tc_pi(q + 4 * r); }
+FB_HD constexpr int tc_b_out(int g) { return g; }
+// D (m16 x n8): register r at row g + 8 (r >> 1), column 2 q + (r & 1).
+FB_HD constexpr int tc_d_lane(int g, int r) { return g + 8 * (r >> 1); }
+FB_HD constexpr int tc_d_out(int q, int r) { return 2 * q + (r & 1); }
+// The register of D that holds what register r of A wants:
+// (tc_d_lane, tc_d_out)(tc_a_from_d(r)) == (tc_a_lane, tc_a_k)(r).
+FB_HD constexpr int tc_a_from_d(int r) { return 2 * (r & 1) + (r >> 1); }
+FB_HD constexpr bool tc_d_is_next_a() {
+  for (int lane = 0; lane < 32; ++lane)
+    for (int r = 0; r < 4; ++r) {
+      const int g = lane >> 2, q = lane & 3, rd = tc_a_from_d(r);
+      if (tc_d_lane(g, rd) != tc_a_lane(g, r) || tc_d_out(q, rd) != tc_a_k(q, r))
+        return false;
+    }
+  return true;
+}
+static_assert(tc_d_is_next_a(), "D's registers are not the next A fragment");
+
+// Lanes a warp runs: one tile of 16, the NT k-tiles accumulated into one D.
+// Chosen on an H100 at n = 18 (PERF.md §6) against two tiles a warp, and
+// against a partial product per k-tile summed after the MMAs (one MMA deep):
+// one application is ~270 cycles here, ~400 with either change.
+constexpr int kTcLanes = 16;
+// The most n-tiles: kMxuMaxN / 8.
+constexpr int kTcMaxNT = kMxuMaxN / 8;
+
+// Warps (tiles of kTcLanes lanes) a stage of B lanes needs.
+FB_HD constexpr int tc_warps_per_stage(int B) {
+  return (B + kTcLanes - 1) / kTcLanes;
+}
+
+// One warp's whole run, as lane `lane` sees it: B fragments of M_s once,
+// w's fragments of lanes b0 .. b0 + kTcLanes - 1, T applications, w's
+// fragments stored. `mma` is the warp's m16n8k8 (d += a b on the thread's
+// registers, of type Mma::Reg) and its operand rounding `mma.cvt`.
+// M: (N1, n, n); w0, w: (N1 n, B).
+template <int NT, class Mma>
+FB_DEV void p1_tc_warp(const Mma& mma, int lane, long long s, int b0, int n,
+                       int B, int T, float scale, const float* M,
+                       const float* w0, float* w) {
+  using Reg = typename Mma::Reg;
+  const int g = lane >> 2, q = lane & 3;
+  Reg bm[NT][NT][2];  // [n-tile j][k-tile i][r]
+  P1_UNROLL
+  for (int j = 0; j < NT; ++j) {
+    const int o = 8 * j + tc_b_out(g);
+    P1_UNROLL
+    for (int i = 0; i < NT; ++i) {
+      P1_UNROLL
+      for (int r = 0; r < 2; ++r) {
+        const int k = 8 * i + tc_b_k(q, r);
+        bm[j][i][r] = mma.cvt(o < n && k < n ? M[(s * n + o) * n + k] : 0.0f);
+      }
+    }
+  }
+  // x: the float32 iterate in D's layout, [n-tile][r].
+  float x[NT][4];
+  P1_UNROLL
+  for (int i = 0; i < NT; ++i) {
+    P1_UNROLL
+    for (int r = 0; r < 4; ++r) {
+      const int k = 8 * i + tc_d_out(q, r);
+      const int b = b0 + tc_d_lane(g, r);
+      x[i][r] = k < n && b < B ? w0[(s * n + k) * B + b] : 0.0f;
+    }
+  }
+  for (int t = 0; t < T; ++t) {
+    Reg a[NT][4];
+    P1_UNROLL
+    for (int i = 0; i < NT; ++i) {
+      P1_UNROLL
+      for (int r = 0; r < 4; ++r) a[i][r] = mma.cvt(x[i][tc_a_from_d(r)]);
+    }
+    P1_UNROLL
+    for (int j = 0; j < NT; ++j) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      P1_UNROLL
+      for (int i = 0; i < NT; ++i) mma(d, a[i], bm[j][i]);
+      P1_UNROLL
+      for (int r = 0; r < 4; ++r) x[j][r] = d[r] * scale;
+    }
+  }
+  P1_UNROLL
+  for (int i = 0; i < NT; ++i) {
+    P1_UNROLL
+    for (int r = 0; r < 4; ++r) {
+      const int k = 8 * i + tc_d_out(q, r);
+      const int b = b0 + tc_d_lane(g, r);
+      if (k < n && b < B) w[(s * n + k) * B + b] = x[i][r];
+    }
+  }
+}
+
+// Calls f.template go<NT>() for NT = ceil(n / 8), n in 1 .. kMxuMaxN.
+template <int NT = 1, class F>
+int tc_with_nt(int n, const F& f) {
+  if constexpr (NT > kTcMaxNT)
+    return -1;
+  else
+    return (n + 7) / 8 == NT ? f.template go<NT>() : tc_with_nt<NT + 1>(n, f);
+}

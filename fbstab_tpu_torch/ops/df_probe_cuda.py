@@ -53,8 +53,18 @@ def df_probe_plain(a, b):
     return s, e, p, pe, hi, lo
 
 
-def launch_df_probe(lib, a, b):
-    """Launches fb_df_probe from `lib` on float32 (R, C) CUDA tensors."""
+def df_probe_outputs(a):
+    """(s, e, p, pe, dh, dl) for `a`'s shape (R, C): row blocks of one
+    (4 R + 2, C) buffer on a's device, each contiguous; two calls into
+    PyTorch in place of six allocations."""
+    rows, cols = a.shape
+    buf = torch.empty(4 * rows + 2, cols, dtype=a.dtype, device=a.device)
+    return buf.split([rows] * 4 + [1, 1])
+
+
+def launch_df_probe(lib, a, b, out=None):
+    """Launches fb_df_probe from `lib` on float32 (R, C) CUDA tensors, into
+    `out` (df_probe_outputs(a), made here unless given)."""
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.float32 or not t.is_cuda or t.ndim != 2:
             raise ValueError(f"{name}: the probe takes a float32 matrix on "
@@ -64,14 +74,13 @@ def launch_df_probe(lib, a, b):
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} differ")
     a, b = a.contiguous(), b.contiguous()
     rows, cols = a.shape
-    outs = [torch.empty_like(a) for _ in range(4)] + [
-        torch.empty(1, cols, dtype=a.dtype, device=a.device)
-        for _ in range(2)]
+    if out is None:
+        out = df_probe_outputs(a)
     from fbstab_tpu_torch.ops._build import check
     stream = torch.cuda.current_stream(a.device).cuda_stream
     check(lib.fb_df_probe(rows, cols, a.data_ptr(), b.data_ptr(),
-                          *[o.data_ptr() for o in outs], stream), "df_probe")
-    return tuple(outs)
+                          *[o.data_ptr() for o in out], stream), "df_probe")
+    return out
 
 
 def df_probe(a, b):

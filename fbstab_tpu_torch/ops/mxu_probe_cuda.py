@@ -8,8 +8,8 @@ On the card:
 
   cuda_perlane  per-lane M on the CUDA cores (the TPU's vpu_perlane);
   cuda_shared   shared M on the CUDA cores (vpu_shared);
-  tc_shared     shared M as a TF32 tensor-core product per stage
-                (mxu_shared).
+  tc_shared     shared M on the TF32 tensor cores, a warp per stage and
+                16 lanes with w in registers for all T (mxu_shared).
 
 Each wrapper takes its plain version (the same recurrence as `einsum` /
 `bmm`) only for tensors on the CPU; for CUDA tensors it launches its kernel

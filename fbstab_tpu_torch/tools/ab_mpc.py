@@ -43,7 +43,11 @@ Options.single_precision():
   - p1_perlane_ms, p1_shared_ms, p1_tc_ms: P1's three kernels
     (cuda_perlane, cuda_shared, tc_shared) at the probe's shape (N1 = 81,
     n = 18, B = 128, T = 200; CUDA events, 20 launches after 0.3 s of
-    them, so the card runs at its working clocks); p1_*_ms_by_T the same
+    them, so the card runs at its working clocks; a launch is issued by
+    the host in about the time tc_shared runs, so these read the host's
+    rate where the kernel is faster); p1_*_graph_ms the same apart from
+    the host (20 launches captured into a CUDA graph, replayed 10 times
+    between CUDA events); p1_*_ms_by_T the same as p1_*_ms
     at T = 200, 400 and 800 (the slope is the time of one application,
     the intercept what a launch costs besides); p1_*_clocks_sm_mhz the
     highest SM clock nvidia-smi read while the form ran its first ~0.3 s
@@ -51,9 +55,18 @@ Options.single_precision():
     from w0 = 0 (every operand zero: the reference's iterate is normal for
     its first ~50 applications, then subnormal, then zero);
   - K1's to K5's registers and spill bytes from the tree's build log, and
-    those of P1's two CUDA-core forms at n = 18, with the opcodes of their
-    SASS (p1_*_sass: counts by mnemonic, cuobjdump).
-With --p1 only the P1 keys are measured (seconds a tree after its build).
+    those of P1's three forms at n = 18, with the opcodes of their SASS
+    (p1_*_sass: counts by mnemonic, cuobjdump); p1_*_slope_us, one
+    application (the T = 400 -> 800 slope of p1_*_ms_by_T), and
+    p1_*_intercept_ms, the rest of the T = 200 time;
+  - p3_graph_ms: P3 (launch_df_probe on the probe's (8, 128) inputs) apart
+    from the host: 20 launches captured into a CUDA graph, replayed 10
+    times between CUDA events; p3_floor_ms a one-element add_ timed the
+    same way (the card's launch floor); p3_host_ms the
+    wrapper (df_probe) called 20 times back to back, as chip_smoke.py
+    timed P3 before; p3_sass the kernel's opcodes.
+With --p1 only the P1 and P3 keys are measured (seconds a tree after its
+build).
 Pass a checkout of the parent and of the change as A B B A to compare them
 in turns on one card; copies of one tree that differ in one constant, to
 weigh it. K5's inputs are built with the tree's own scan, whose spans are
@@ -62,6 +75,7 @@ batch-last in trees before the instance-major K5 (`k5_widest_level`).
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import subprocess
@@ -79,7 +93,19 @@ P1_ENTRIES = dict(
     p1_perlane_ptxas=("stage_matvec_teamILi18ELb1E",
                       "stage_matvec_cuda_coresILb1E"),
     p1_shared_ptxas=("stage_matvec_teamILi18ELb0E",
-                     "stage_matvec_cuda_coresILb0E"))
+                     "stage_matvec_cuda_coresILb0E"),
+    p1_tc_ptxas=("stage_matvec_tcILi3E", "stage_matvec_tensor_cores"))
+P1_FORMS = ("p1_perlane", "p1_shared", "p1_tc")
+
+
+def own_workloads():
+    """This tool's own tree's workloads module, loaded by path: the tree
+    measured may predate its timing helpers."""
+    path = Path(__file__).resolve().parents[1] / "workloads.py"
+    spec = importlib.util.spec_from_file_location("ab_own_workloads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k1_inputs(data, seed=5):
@@ -137,6 +163,7 @@ def measure_p1(row: dict) -> None:
     from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
     from fbstab_tpu_torch.workloads import cuda_ms
 
+    own = own_workloads()
     dev = torch.device("cuda", 0)
     Mp, Ms, w0 = p1.probe_inputs(device=dev)
     zero = torch.zeros_like(w0)
@@ -158,9 +185,30 @@ def measure_p1(row: dict) -> None:
                    if ln.count(",") == 1]
         row[key + "_clocks_sm_mhz"] = max(float(c) for c, _ in samples)
         row[key + "_ms"] = cuda_ms(probe, 20, warm=False)
+        row[key + "_graph_ms"] = own.graph_ms(probe)
         row[key + "_ms_by_T"] = {T: cuda_ms(lambda: probe(T), 20)
                                  for T in P1_SWEEP_T}
         row[key + "_ms_zero_w"] = cuda_ms(lambda: probe(w=zero), 20)
+
+
+def measure_p3(row: dict) -> None:
+    """P3 at the probe's shape, into `row`: its device time apart from the
+    host (CUDA graphs), the launch floor timed the same way, and the
+    wrapper's host-issued time."""
+    import torch
+
+    from fbstab_tpu_torch.ops import df_probe_cuda as p3
+    from fbstab_tpu_torch.ops._build import load_library
+    from fbstab_tpu_torch.workloads import cuda_ms
+
+    own = own_workloads()
+    dev = torch.device("cuda", 0)
+    lib = load_library()
+    a, b = p3.probe_inputs(dev)
+    launch = lambda: p3.launch_df_probe(lib, a, b)
+    row["p3_graph_ms"] = own.graph_ms(launch)
+    row["p3_floor_ms"] = own.launch_floor_ms(dev)
+    row["p3_host_ms"] = cuda_ms(lambda: p3.df_probe(a, b), 20)
 
 
 def sass_opcodes(lib_path, entries) -> dict:
@@ -192,6 +240,7 @@ def measure(tree: str, p1_only: bool = False) -> dict:
 
     row = dict(tree=tree)
     measure_p1(row)
+    measure_p3(row)
     row["log"] = str(_build.library_path().with_suffix(".log"))
     if p1_only:
         return row
@@ -311,6 +360,12 @@ def main():
             row[key] = [ln for e in entries
                         for ln in ptxas_lines("mxu_probe.cu", log, e)]
             row[key.replace("ptxas", "sass")] = sass_opcodes(lib, entries)
+        row["p3_sass"] = sass_opcodes(lib, ("df_probe_kernel",))
+        for key in P1_FORMS:
+            by_t = row[key + "_ms_by_T"]
+            slope = (by_t["800"] - by_t["400"]) / 400
+            row[key + "_slope_us"] = slope * 1e3
+            row[key + "_intercept_ms"] = by_t["200"] - 200 * slope
         del row["log"]
         print(json.dumps(row), flush=True)
 

@@ -216,6 +216,45 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn, reps=10):
+    """Device milliseconds per call of fn, apart from the host's issue of
+    each call: GRAPH_CALLS calls of fn captured into one CUDA graph (after
+    a warm call on a side stream, as capture requires), the graph replayed
+    `reps` times between CUDA events. What fn allocates while captured
+    comes from the graph's own pool, and every replay reuses it. A graph
+    of one call replayed would read the replays' own launch rate (~5 us
+    on an H100), not a short kernel's time: hence 20 calls a graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * GRAPH_CALLS)
+
+
+def launch_floor_ms(device, reps=10):
+    """The card's launch floor, timed as graph_ms times a kernel: a
+    one-element PyTorch op (add_ on one float)."""
+    x = torch.zeros(1, device=device)
+    return graph_ms(lambda: x.add_(1.0), reps)
+
+
 def timed(fn):
     """(fn(), host milliseconds) around synchronized work (the card is
     synchronized where there is one)."""

@@ -246,22 +246,25 @@ def test_probe_inputs_are_the_references_draws():
 
 def _card_probe_case(kernel, kind):
     """A probe kernel against its plain version at T = 1 and 8 on the card,
-    within the stated tolerances (ops/mxu_probe_cuda.py)."""
+    within the stated tolerances (ops/mxu_probe_cuda.py), at the probe's
+    n = 18, B = 128 and at n = 5 and 32 on a ragged B = 40 (padded and
+    full tiles, masked lanes)."""
     require_cuda()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    Mp, Ms, w0 = p1.probe_inputs(device=dev)
-    M = Mp if kind == "perlane" else Ms
     plain = p1.perlane_plain if kind == "perlane" else p1.shared_plain
-    scale = p1.scale_of(18)
-    for T in (1, 8):
-        got = kernel(M, w0, T, scale)
-        want = plain(M, w0, T, scale)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max() / want.abs().max())
-        tol = (p1.tc_tol(T, 18, 0.0) if kernel is p1.tc_shared
-               else p1.CUDA_CORE_TOL)
-        assert err <= tol, (T, err, tol)
+    for n, B in ((18, 128), (5, 40), (32, 40)):
+        Mp, Ms, w0 = p1.probe_inputs(p1.N1, n, B, device=dev)
+        M = Mp if kind == "perlane" else Ms
+        scale = p1.scale_of(n)
+        for T in (1, 8):
+            got = kernel(M, w0, T, scale)
+            want = plain(M, w0, T, scale)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max() / want.abs().max())
+            tol = (p1.tc_tol(T, n, 0.0) if kernel is p1.tc_shared
+                   else p1.CUDA_CORE_TOL)
+            assert err <= tol, (n, B, T, err, tol)
 
 
 @pytest.mark.cuda
@@ -353,6 +356,25 @@ def test_df_probe_plain_version_is_exact_and_agrees_with_pallas_kernel():
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), w.numpy())
+
+
+def test_df_probe_outputs_are_views_of_one_buffer():
+    """The wrapper makes its six outputs as contiguous views of one buffer
+    of 4 R C + 2 C floats, in the order (s, e, p, pe, dh, dl); the launcher
+    raises on tensors that are not on the card."""
+    a, b = p3.probe_inputs(device="cpu")
+    R, C = a.shape
+    out = p3.df_probe_outputs(a)
+    assert [tuple(o.shape) for o in out] == [(R, C)] * 4 + [(1, C)] * 2
+    assert all(o.is_contiguous() and o.dtype == a.dtype for o in out)
+    base = out[0].untyped_storage()
+    assert all(o.untyped_storage().data_ptr() == base.data_ptr()
+               for o in out)
+    assert base.nbytes() == (4 * R * C + 2 * C) * a.element_size()
+    assert [o.storage_offset() for o in out] == [
+        0, R * C, 2 * R * C, 3 * R * C, 4 * R * C, 4 * R * C + C]
+    with pytest.raises(ValueError, match="on the card"):
+        p3.launch_df_probe(None, a, b, out)
 
 
 @pytest.mark.cuda

@@ -582,3 +582,46 @@ def test_replayed_probe_matches_plain_probe(lib, form, n, B, T):
                 atol=1e-12 * want.abs().max().item())
         else:
             assert torch.equal(got, one), team
+
+
+def _tf32(x):
+    """float64 rounded to TF32 as cvt.rna.tf32.f32 rounds: 10 mantissa
+    bits after the leading one, to nearest, ties away from zero."""
+    m, e = np.frexp(x)
+    return np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2048.0 + 0.5), e - 11)
+
+
+def _tc_plain(Ms, w0, T, scale):
+    """tc_shared's function in float64: M and w rounded to TF32 before
+    every application, the sum exact, then the scale."""
+    N1, n = Ms.shape[:2]
+    M, w = _tf32(Ms), w0.reshape(N1, n, -1)
+    for _ in range(T):
+        w = np.einsum("sij,sjb->sib", M, _tf32(w)) * scale
+    return w.reshape(N1 * n, -1)
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("B", [40, 128])
+@pytest.mark.parametrize("n", [5, 18, 32])
+def test_replayed_tc_probe_matches_tf32_plain_probe(lib, n, B, T):
+    """P1's tensor-core form (csrc/mxu_probe.cuh, p1_tc_warp) replayed in
+    float64 on three stages: each warp on 32 host threads holding the
+    kernel's fragments, its MMA in software from the hardware's fragment
+    layouts (both operands rounded to TF32, float64 sums), within 1e-12 of
+    a numpy version that rounds M and w to TF32 every application
+    (relative to its largest entry). A fragment map that the contraction
+    order does not carry (pi dropped, A's registers swapped) moves entries
+    by O(1). n = 5 and 18 pad the last n-tile, n = 32 fills four; B = 40
+    leaves a ragged tile of lanes."""
+    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
+
+    N1 = 3
+    _, Ms, w0 = p1.probe_inputs(N1, n, B, device="cpu", dtype=torch.float64)
+    scale = p1.scale_of(n)
+    want = _tc_plain(Ms.numpy(), w0.numpy(), T, scale)
+    got = torch.full_like(w0, float("nan"))
+    assert lib.fb_mxu_probe(2, N1, n, B, T, scale, Ms.data_ptr(),
+                            w0.data_ptr(), got.data_ptr()) == 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())

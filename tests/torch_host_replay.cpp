@@ -12,7 +12,8 @@
 // fb_replay_set_stages(0), works in place as K1's teams do at stages too
 // large for a block's shared memory. P1's two CUDA-core forms run each
 // (stage, lanes) team on the threads that a team of at most T threads
-// needs (any T from 1 to 32), with a barrier for the warp's sync.
+// needs (any T from 1 to 32), with a barrier for the warp's sync; its
+// tensor-core form runs each warp on 32 host threads with a software MMA.
 // tests/test_torch_device_code.py builds it with the host compiler and
 // holds it lane for lane against the plain float64 versions of the
 // kernels.
@@ -37,7 +38,7 @@ extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
       const long long k = (long long)r * C + c;
       df_two_sum(a[k], b[k], s[k], e[k]);
       df_two_prod(a[k], b[k], p[k], pe[k]);
-      df_dot_step(a[k], b[k], hi, lo);
+      df_dot_add(p[k], pe[k], hi, lo);
     }
     dh[c] = hi;
     dl[c] = lo;
@@ -135,6 +136,71 @@ Lane stage_block(const Tm&, std::vector<float>& stage, Lane w,
                  const MpcDims& D) {
   return Tm::kStages ? Lane{stage.data(), 1} : w.at(ric_layout(D).stage);
 }
+
+// TF32 rounding of a float64: 10 mantissa bits after the leading one, to
+// nearest, ties away from zero (cvt.rna.tf32.f32).
+static double tf32(double x) {
+  if (x == 0.0 || !isfinite(x)) return x;
+  int e;
+  const double m = frexp(x, &e);  // x = m 2^e, 0.5 <= |m| < 1
+  return ldexp(round(m * 2048.0), e - 11);
+}
+
+// A software mma.sync.aligned.m16n8k8.row.col for the 32 host threads of a
+// warp: each deposits its fragments, and each takes its D entries from the
+// hardware's layouts (PTX ISA, .tf32 m16n8k8), written out here apart from
+// mxu_probe.cuh's maps: A register r of lane (g, q) = (lane >> 2,
+// lane & 3) at (g + 8 (r & 1), q + 4 (r >> 1)), B register r at (q + 4 r,
+// g), C and D register r at (g + 8 (r >> 1), 2 q + (r & 1)). Both operands
+// are rounded to TF32 here and the products summed in float64.
+struct HostWarpMma {
+  using Reg = double;
+  struct Shared {
+    std::barrier<> bar{32};
+    double a[32][4], b[32][2];
+  };
+  Shared* sh;
+  int lane;
+  Reg cvt(double x) const { return x; }
+  void operator()(double (&d)[4], const Reg (&a)[4], const Reg (&b)[2]) const {
+    for (int r = 0; r < 4; ++r) sh->a[lane][r] = a[r];
+    for (int r = 0; r < 2; ++r) sh->b[lane][r] = b[r];
+    sh->bar.arrive_and_wait();
+    const int g = lane >> 2, q = lane & 3;
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + 8 * (r >> 1), col = 2 * q + (r & 1);
+      double sum = 0.0;
+      for (int k = 0; k < 8; ++k)
+        sum += tf32(sh->a[4 * (row % 8) + k % 4][row / 8 + 2 * (k / 4)]) *
+               tf32(sh->b[4 * col + k % 4][k / 4]);
+      d[r] += sum;
+    }
+    sh->bar.arrive_and_wait();
+  }
+};
+
+struct HostTcRun {
+  int N1, n, B, T;
+  double scale;
+  const double *M, *w0;
+  double* w;
+  template <int NT>
+  int go() const {
+    HostWarpMma::Shared sh;
+    const int tiles = tc_warps_per_stage(B);
+    const auto body = [&](int lane) {
+      for (long long wp = 0; wp < (long long)N1 * tiles; ++wp)
+        p1_tc_warp<NT>(HostWarpMma{&sh, lane}, lane, wp / tiles,
+                       (int)(wp % tiles) * kTcLanes, n, B, T, scale, M,
+                       w0, w);
+    };
+    std::vector<std::thread> threads;
+    for (int lane = 1; lane < 32; ++lane) threads.emplace_back(body, lane);
+    body(0);
+    for (auto& t : threads) t.join();
+    return 0;
+  }
+};
 
 extern "C" {
 
@@ -339,12 +405,16 @@ int fb_assoc_combine(int n, int M, int B, const long long* strides,
   return 0;
 }
 
-// P1's forms 0 (per-lane M) and 1 (shared M) without the stream argument:
+// P1 without the stream argument. Forms 0 (per-lane M) and 1 (shared M):
 // every (stage, lanes) team in turn on the host threads that a team of at
-// most g_team threads needs, with the kernel's lanes per thread.
+// most g_team threads needs, with the kernel's lanes per thread. Form 2
+// (tc_shared): every warp in turn on 32 host threads, each thread's
+// fragments as the kernel's, the warp's MMA in software.
 int fb_mxu_probe(int form, int N1, int n, int B, int T, float scale,
                  const float* M, const float* w0, float* w) {
-  if (n < 1 || n > kMxuMaxN || form < 0 || form > 1) return 1;
+  if (n < 1 || n > kMxuMaxN || form < 0 || form > 2) return 1;
+  if (form == 2)
+    return tc_with_nt(n, HostTcRun{N1, n, B, T, scale, M, w0, w});
   const int c = form == 0 ? 1 : kSharedLanes;
   const P1Dyn d{n, p1_rows(n, g_team), c};
   const int G = p1_threads(n, g_team), chunks = (B + c - 1) / c;
