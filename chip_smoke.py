@@ -65,7 +65,24 @@ fatal on failure:
      integrator in float32 with riccati="scan" and "assoc", in turns, at
      N = 120, 240 and 480 (`bench.py longhorizon`'s N), best of 5 each;
  17. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
-     the copoly batch at B = 256.
+     the copoly batch at B = 256;
+ 18. the differentiable layer: the gradient of 0.5 |z|^2 with respect to
+     every data field through solve_mpc_qp_batch_diff at B = 1024 on the
+     headline data, float32 under Options.single_precision() with
+     sigma_vjp = 1e-5 (forward K2 and the refinement's K1, backward one K1
+     launch), held against the same backward on the plain Newton step and
+     against a float64 solve and backward on the card's plain path;
+ 19. the feedback gain: mpc_feedback_gain on lane 0 of phase 18's
+     headline data and on the first lane with the most first inputs
+     inside their box (a row of K is zero where that input saturates), in
+     float32 (its nx tangents one K1 launch), against float64 on the card
+     and central differences of the float64 solve;
+ 20. the batch facades: FBstabMpcBatch at B = 8192 (a call, a call on the
+     next step's data with the carried shifted warmstart, an adaptive
+     call), each at the 1e-6 contract on every lane with BatchStats equal
+     to the host's reduction; refine_mpc_batch (three unrolled steps) on
+     the raw headline solution; FBstabDenseBatch at B = 4096 on the dense
+     mode's data with its FINAL summary through an OutputStream.
 
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: for K1-K5 a team of T threads per instance, or per pair and
@@ -1053,6 +1070,353 @@ def phase_warmstart(B, device, steps=8):
     return n
 
 
+# The differentiable layer. float32 gradients (sigma_vjp = 1e-5) against
+# a float64 solve and backward at the same sigma_vjp on SUCCESS lanes:
+# |g32 - g64| <= DIFF_RTOL |g64| + DIFF_ATOL max |g64| per field. That is
+# the float32 pin of tests/test_diff.py (rtol 5e-3, atol 5e-4 on gradients
+# of order one) with its atol scaled to the field's largest gradient (the
+# headline's reach 1e2) and raised to the float32 floor of the backward:
+# Gamma = gamma / mus ~ 1 / sigma_vjp = 1e5 on active rows, so the float32
+# Newton solve carries ~1e5 x 6e-8 relative error there (on an H100 80GB
+# HBM3, 700 W: 1.2e-3 of the field's largest gradient, on q). The pin
+# taken literally (absolute atol 5e-4) is printed beside the gate as a
+# reading. What the gate must reject (PERF.md): a 1% error in K1's dz,
+# and the regularization bias against float64 at its default
+# sigma_vjp = 1e-9 (up to 2% of a field's largest gradient). K1's
+# backward against the plain Newton step's, both float32:
+# max |g_K1 - g_plain| <= DIFF_K1_TOL (1 + max |g_plain|) per field
+# (measured 2.2e-3: the same float32 floor, met by two implementations).
+DIFF_RTOL, DIFF_ATOL = 5e-3, 2.5e-3
+DIFF_K1_TOL = 5e-3
+# The feedback gain: float64 against central differences
+# (tests/test_diff.py:274-303), float32 against float64:
+# max |K32 - K64| <= GAIN_F32_TOL (1 + max |K64|) (on an H100 80GB HBM3,
+# 700 W: 1.3e-3 on the lane with all three first inputs inside their box,
+# |K| up to 1.68).
+GAIN_FD_RTOL, GAIN_FD_ATOL = 1e-4, 1e-6
+GAIN_F32_TOL = 5e-3
+
+
+def _leaves(data):
+    """A copy of `data` whose fields are leaves that require grad."""
+    return type(data)(*(a.detach().clone().requires_grad_() for a in data))
+
+
+def diff_grads(solve, data, guess):
+    """(gradients by field, z, forward s, backward s, forward launches,
+    backward launches) of 0.5 |z|^2 through solve(data, *guess)."""
+    leaves = _leaves(data)
+    counts = reset_launches()
+    (z, _, _), t_fwd = timed(lambda: solve(leaves, *guess))
+    n_fwd = counts()
+    counts = reset_launches()
+    _, t_bwd = timed(lambda: (0.5 * (z * z).sum()).backward())
+    n_bwd = counts()
+    grads = {k: a.grad for k, a in zip(data._fields, leaves)}
+    return grads, z, t_fwd / 1e3, t_bwd / 1e3, n_fwd, n_bwd
+
+
+def _grad_gap(got, want, good):
+    """Per field on the `good` lanes: (violations of |got - want| <=
+    DIFF_RTOL |want| + DIFF_ATOL max |want|, max |got - want| / max
+    |want|)."""
+    viol, rel = {}, {}
+    for k, w in want.items():
+        a, w = got[k][good].double(), w[good].double()
+        scale = w.abs().max().clamp(min=1e-30)
+        gap = (a - w).abs()
+        viol[k] = int((gap > DIFF_RTOL * w.abs() + DIFF_ATOL * scale).sum())
+        rel[k] = (gap.max() / scale).item()
+    return viol, rel
+
+
+def _abs_tol_violations(got, want, good):
+    """Per field on the `good` lanes: violations of tests/test_diff.py's
+    float32 pin taken literally, |got - want| <= 5e-3 |want| + 5e-4 (a
+    reading beside the gate: see DIFF_ATOL)."""
+    return {k: int(((got[k][good].double() - w[good].double()).abs()
+                    > 5e-3 * w[good].double().abs() + 5e-4).sum())
+            for k, w in want.items()}
+
+
+def phase_diff(B, device):
+    from fbstab_tpu_torch.diff import (
+        make_differentiable_batch_solver, solve_mpc_qp_batch_diff)
+    from fbstab_tpu_torch.models.mpc_qp import (
+        MPC_PLAIN_OPS, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    data = build_batch(B, **HEADLINE, device=device)
+    guess = zeros_guess(data)
+    solve = lambda d, *g: solve_mpc_qp_batch_diff(d, *g, opts, 1e-5)
+    diff_grads(solve, data, guess)          # warm
+    g32, _, t_fwd, t_bwd, n_fwd, n_bwd = diff_grads(solve, data, guess)
+    (_, core32), _ = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
+    plain = make_differentiable_batch_solver(
+        MPC_PLAIN_OPS, solve_mpc_qp_batch, opts, 1e-5)
+    gp, _, _, t_bwd_plain, _, _ = diff_grads(plain, data, guess)
+
+    data64 = build_batch(B, **HEADLINE, device=device, dtype=torch.float64)
+    guess64 = zeros_guess(data64)
+    opts64 = Options(abs_tol=1e-10)
+    g64, _, t_fwd64, t_bwd64, _, _ = diff_grads(
+        lambda d, *g: solve_mpc_qp_batch_diff(d, *g, opts64, 1e-5), data64,
+        guess64)
+    (_, core64), _ = timed(lambda: solve_mpc_qp_batch(data64, *guess64,
+                                                      opts64))
+    good = (core32.eflag == 0) & (core64.eflag == 0)
+    finite = all(bool(torch.isfinite(g).all()) for g in g32.values())
+    k1_err = {k: ((g32[k] - gp[k]).abs().max()
+                  / (1 + gp[k].abs().max())).item() for k in g32}
+    viol, rel = _grad_gap(g32, g64, good)
+    viol_abs = _abs_tol_violations(g32, g64, good)
+    print(json.dumps({"diff": dict(
+        B=B, forward_s=t_fwd, backward_s=t_bwd,
+        grads_per_s=B / (t_fwd + t_bwd), backward_plain_s=t_bwd_plain,
+        forward_f64_s=t_fwd64, backward_f64_s=t_bwd64,
+        launches_forward=n_fwd, launches_backward=n_bwd, finite=finite,
+        success_lanes_both=int(good.sum()),
+        k1_vs_plain_max_rel=max(k1_err.values()), k1_tol=DIFF_K1_TOL,
+        f32_vs_f64_violations=viol, f32_vs_f64_max_rel=rel,
+        rtol=DIFF_RTOL, atol_times_max=DIFF_ATOL,
+        f32_vs_f64_violations_at_test_diff_tol=viol_abs)}))
+    if not finite:
+        fail("diff: a float32 gradient is not finite")
+    if n_fwd["K2"] < 1 or n_bwd["K1"] != 1 or n_bwd["K2"] != 0:
+        fail("diff: the forward did not launch K2, or the backward was not "
+             "exactly one K1 launch")
+    if max(k1_err.values()) > DIFF_K1_TOL:
+        fail("diff: K1's backward disagrees with the plain Newton step's")
+    if good.float().mean().item() < 0.99 or any(viol.values()):
+        fail("diff: float32 gradients miss float64's on SUCCESS lanes")
+    return {f"diff_{k}": v for k, v in (("forward", n_fwd),
+                                        ("backward", n_bwd))}
+
+
+def _fd_gain(one64, opts64, eps=1e-6):
+    """Central differences of u0*(x0) on a float64 instance: the 2 nx
+    perturbed problems as lanes of one lockstep solve of the core (lanes
+    are independent, so each is solve_mpc_qp's result)."""
+    from fbstab_tpu_torch.core.algorithm import fbstab_solve_batch
+    from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, batch_data
+    nx, nu = HEADLINE["nx"], HEADLINE["nu"]
+    eye = torch.eye(nx, dtype=torch.float64, device=one64.x0.device)
+    x0 = torch.cat([one64.x0 + eps * eye, one64.x0 - eps * eye])
+    lanes = batch_data(one64, 2 * nx)._replace(x0=x0)
+    x, core = fbstab_solve_batch(MPC_OPS, lanes, *zeros_guess(lanes), opts64)
+    if not bool((core.eflag == 0).all()):
+        fail("feedback_gain: a finite-difference solve failed")
+    u0 = x.z[:, nx:nx + nu]
+    return ((u0[:nx] - u0[nx:]) / (2 * eps)).T
+
+
+def phase_feedback_gain(B, device):
+    from fbstab_tpu_torch.core.algorithm import fbstab_solve_batch
+    from fbstab_tpu_torch.diff import mpc_feedback_gain
+    from fbstab_tpu_torch.models.mpc_qp import (
+        MPC_OPS, exact_f32_matmul, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.options import Options
+
+    opts, opts64 = Options.single_precision(), Options(abs_tol=1e-11)
+    nx, nu = HEADLINE["nx"], HEADLINE["nu"]
+    data = build_batch(B, **HEADLINE, device=device)
+    data64 = build_batch(B, **HEADLINE, device=device, dtype=torch.float64)
+    # Lane 0, and the first lane with the most inputs strictly inside
+    # their box at stage 0 (a saturated input has a zero row of K).
+    head = type(data64)(*(a[:64] for a in data64))
+    x, _ = solve_mpc_qp_batch(head, *zeros_guess(head), opts64)
+    inside = (x.z[:, nx:nx + nu].abs() < 1 - 1e-3).sum(1)
+    lanes = (0, int(torch.argmax(inside)))
+    rows = []
+    for lane in lanes:
+        pick = lambda d: type(d)(*(a[lane:lane + 1].contiguous() for a in d))
+        one, one64 = pick(data), pick(data64)
+        exact_f32_matmul(one.x0)
+        counts = reset_launches()
+        _, core = fbstab_solve_batch(MPC_OPS, one, *zeros_guess(one), opts)
+        n_solve = counts()["K1"]
+        counts = reset_launches()
+        K32, t32 = timed(lambda: mpc_feedback_gain(one, opts))
+        gain_counts = counts()
+        n_gain = gain_counts["K1"]
+        if lane == lanes[0]:
+            lane0_counts = gain_counts
+        K64, t64 = timed(lambda: mpc_feedback_gain(one64, opts64))
+        FD = _fd_gain(one64, opts64)
+        fd_ok = bool(torch.all((K64 - FD).abs()
+                               <= GAIN_FD_ATOL + GAIN_FD_RTOL * FD.abs()))
+        rel32 = ((K32.double() - K64).abs().max()
+                 / (1 + K64.abs().max())).item()
+        rows.append(dict(
+            lane=lane, shape=list(K32.shape),
+            inputs_inside=int(inside[lane]),
+            f32_solve_eflag=int(core.eflag[0]), f32_ms=t32, f64_ms=t64,
+            max_abs_K64=K64.abs().max().item(),
+            zero_rows_K64=int((K64.abs().amax(1) < 1e-6).sum()),
+            f32_vs_f64_max_rel=rel32, f32_tol=GAIN_F32_TOL,
+            f64_vs_fd_max_abs=(K64 - FD).abs().max().item(),
+            fd_rtol=GAIN_FD_RTOL, fd_atol=GAIN_FD_ATOL, fd_ok=fd_ok,
+            k1_launches_solve=n_solve, k1_launches_gain=n_gain))
+        if (tuple(K32.shape) != (nu, nx)
+                or not bool(torch.isfinite(K32).all())):
+            fail("feedback_gain: not a finite (nu, nx) gain")
+        if n_gain != n_solve + 1:
+            fail("feedback_gain: the tangents were not one K1 launch")
+        if not fd_ok or rel32 > GAIN_F32_TOL:
+            fail("feedback_gain: the gain misses float64 or the "
+                 "differences")
+    print(json.dumps({"feedback_gain": rows}))
+    return {"feedback_gain": lane0_counts}
+
+
+def _host_stats(out):
+    """BatchStats as the host computes them from a SolverOut."""
+    ef = out.eflag.cpu().numpy()
+    res = out.residual.double().cpu().numpy()
+    ni = out.newton_iters.cpu().numpy()
+    inf = (ef >= 3) & (ef <= 5)
+    return dict(num_instances=ef.size, num_success=int((ef == 0).sum()),
+                num_infeasible=int(inf.sum()),
+                num_failed=int(ef.size - (ef == 0).sum() - inf.sum()),
+                max_residual=res.max(), mean_residual=res.mean(),
+                total_newton_iters=int(ni.sum()),
+                max_newton_iters=int(ni.max()))
+
+
+def _check_stats(tag, stats, out):
+    host = _host_stats(out)
+    for k, want in host.items():
+        got = getattr(stats, k).item()
+        same = (np.isclose(got, want, rtol=1e-5, atol=0)
+                if isinstance(want, float) else got == want)
+        if not same:
+            fail(f"{tag}: BatchStats.{k} {got} != the host's {want}")
+
+
+def _next_state(data, x):
+    """Each lane's next initial state under the first input of its
+    solution: x0+ = A(0) x0 + B(0) u0 + c(0)."""
+    nx, nu = data.A.shape[-1], data.B.shape[-1]
+    z = x.hi().z if hasattr(x, "hi") else x.z
+    u0 = z[:, nx:nx + nu].to(data.x0.dtype)
+    return (torch.einsum("bij,bj->bi", data.A[:, 0], data.x0)
+            + torch.einsum("bij,bj->bi", data.B[:, 0], u0) + data.c[:, 0])
+
+
+def phase_facade(B, Bd, device):
+    import dataclasses
+
+    from fbstab_tpu_torch.models.batch_facade import (
+        FBstabDenseBatch, FBstabMpcBatch)
+    from fbstab_tpu_torch.options import Display, Options
+    from fbstab_tpu_torch.utils.printing import OutputStream
+
+    data = build_batch(B, **HEADLINE, device=device)
+    alpha = Options.single_precision().alpha
+    rows, paths = [], {}
+
+    def call(tag, solver, d):
+        counts = reset_launches()
+        x, out, stats = solver.solve(d)
+        n = counts()
+        res64 = mpc_f64_residual(d, x, alpha)
+        _check_stats(tag, stats, out)
+        qps = B / out.solve_time.item()
+        rows.append(dict(call=tag, B=B, qps=qps, s=out.solve_time.item(),
+                         residual_f64_max=float(res64.max()),
+                         success=int(stats.num_success),
+                         mean_newton=out.newton_iters.float().mean().item(),
+                         launches=n))
+        if not bool(np.all(res64 <= CONTRACT)):
+            fail(f"facade: {tag} misses the 1e-6 contract on some lane")
+        if n["K2"] < 1 or n["K1"] < 1:
+            fail(f"facade: {tag} did not launch K2 and K1")
+        paths[tag] = n
+        return x
+
+    mpc = FBstabMpcBatch(B, **HEADLINE, device=device)
+    x = call("mpc", mpc, data)
+    data2 = data._replace(x0=_next_state(data, x))
+    call("mpc_next_step", mpc, data2)
+    ada = FBstabMpcBatch(B, **HEADLINE, adaptive=True, device=device)
+    call("mpc_adaptive", ada, data)
+    paths.update(phase_refine_unrolled(data, device))
+
+    class Capture(OutputStream):
+        def __init__(self):
+            self.buf = []
+
+        def print(self, msg):
+            self.buf.append(msg)
+
+    dense = build_dense(Bd, DENSE["n"], DENSE["q"], 0, device)
+    solver = FBstabDenseBatch(Bd, DENSE["n"], 0, DENSE["q"], device=device)
+    solver.update_options(dataclasses.replace(
+        Options.single_precision(), display_level=Display.FINAL))
+    sink = Capture()
+    counts = reset_launches()
+    xd, outd, statsd = solver.solve(dense, stream=sink)
+    n = counts()
+    paths["dense"] = n
+    _check_stats("dense", statsd, outd)
+    good = (outd.eflag == 0).cpu().numpy()
+    res64 = dense_f64_residual(dense, xd, alpha)
+    text = "".join(sink.buf)
+    rows.append(dict(call="dense", B=Bd, qps=Bd / outd.solve_time.item(),
+                     s=outd.solve_time.item(), success=int(good.sum()),
+                     residual_f64_max_success=float(res64[good].max()),
+                     launches=n, summary=text.strip().splitlines()[0]))
+    print(json.dumps({"facade": rows}))
+    if n["K3"] < 1:
+        fail("facade: FBstabDenseBatch did not launch K3")
+    if good.mean() < 0.99 or not bool(np.all(res64[good] <= CONTRACT)):
+        fail("facade: FBstabDenseBatch misses the contract")
+    if f"Batch optimization completed!  {Bd} instances" not in text:
+        fail("facade: the FINAL summary did not reach the stream")
+    return {f"facade_{k}": v for k, v in paths.items()}
+
+
+def phase_refine_unrolled(data, device, steps=3):
+    """refine_mpc_batch (the unrolled polish, one K1 launch a step) on the
+    raw float32 solution of the equilibrated headline problem."""
+    import dataclasses
+
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.models.refine import refine_mpc_batch
+    from fbstab_tpu_torch.models.scaling import (
+        equilibrate_mpc, scale_mpc_variable, unscale_mpc_variable_df)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    x, _ = solve_mpc_qp_batch(data, *zeros_guess(data),
+                              dataclasses.replace(opts, refine_steps=0))
+    sdata, scal = equilibrate_mpc(data)
+    counts = reset_launches()
+    (refined, hist), ms = timed(lambda: refine_mpc_batch(
+        sdata, scale_mpc_variable(x, scal), opts, steps=steps))
+    n = counts()
+    res64 = mpc_f64_residual(data, unscale_mpc_variable_df(refined, scal),
+                             opts.alpha)
+    print(json.dumps({"refine_mpc_batch": dict(
+        B=data.x0.shape[0], steps=steps, ms=ms,
+        history_max=[h.max().item() for h in hist],
+        residual_f64_raw_max=float(mpc_f64_residual(data, x, opts.alpha)
+                                   .max()),
+        residual_f64_max=float(res64.max()), launches=n)}))
+    if n["K1"] != steps:
+        fail("refine_mpc_batch: not one K1 launch a step")
+    if not bool(np.all(np.isfinite(res64))):
+        fail("refine_mpc_batch: non-finite refined point")
+    if not bool(torch.all((hist[-1] <= CONTRACT) & (hist[-1] <= hist[0]))):
+        fail("refine_mpc_batch: the polish left a lane above the contract "
+             "or above its entry residual")
+    if not bool(np.all(res64 <= CONTRACT)):
+        fail("refine_mpc_batch: a refined lane misses the contract in "
+             "host float64")
+    return {"refine_mpc_batch": n}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the kernels run only on the card")
@@ -1085,10 +1449,13 @@ def main():
     n_copoly = phase_copoly(2048, device)
     n_long, _ = phase_longhorizon(device)
     n_assoc = phase_assoc_batch(256, device)
+    n_diff = phase_diff(1024, device)
+    n_gain = phase_feedback_gain(1024, device)
+    n_facade = phase_facade(8192, 4096, device)
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
-                 mpc_warmstart=n_warm)
+                 mpc_warmstart=n_warm, **n_diff, **n_gain, **n_facade)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",

@@ -12,21 +12,46 @@ the combine of the associative Riccati scan (ops/assoc_combine_cuda.py,
 dense solver (ops/dense_solve_cuda.py); on the CPU, through their plain
 PyTorch versions. Data goes on the card unless the caller passes device="cpu".
 The receding-horizon loop (models/receding_horizon.py) runs closed-loop
-sweeps on these solves, and `python -m fbstab_tpu_torch.bench` measures
-them with the JAX package's bench modes.
+sweeps on these solves, the batch facades (models/batch_facade.py) bundle
+them with the warmstart carry and the batch statistics, the
+differentiable layer (diff.py) differentiates them implicitly with one
+batched Newton step (the Riccati kernel for the MPC class on the card),
+and `python -m fbstab_tpu_torch.bench` measures them with the JAX
+package's bench modes. The exports are the JAX package's, less the
+sparse QP class, which is not ported yet.
 The JAX package `fbstab_tpu` is the reference this package is tested
 against; nothing here imports JAX.
 """
 
-from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
+from fbstab_tpu_torch.core.algorithm import (
+    CoreOut,
+    fbstab_solve,
+    fbstab_solve_batch,
+)
 from fbstab_tpu_torch.core.variable import Variable
+from fbstab_tpu_torch.diff import (
+    make_differentiable_batch_solver,
+    make_differentiable_solver,
+    make_jvp_solver,
+    mpc_feedback_gain,
+    solve_dense_qp_diff,
+    solve_mpc_qp_batch_diff,
+    solve_mpc_qp_diff,
+)
+from fbstab_tpu_torch.models.batch_facade import (
+    FBstabDenseBatch,
+    FBstabMpcBatch,
+)
 from fbstab_tpu_torch.models.dense_qp import (
+    DENSE_OPS,
     DenseQPData,
     FBstabDense,
     dense_qp_data,
+    solve_dense_qp,
     solve_dense_qp_batch,
 )
 from fbstab_tpu_torch.models.mpc_qp import (
+    MPC_OPS,
     FBstabMpc,
     MpcQPData,
     batch_data,
@@ -35,7 +60,21 @@ from fbstab_tpu_torch.models.mpc_qp import (
     solve_mpc_qp,
     solve_mpc_qp_batch,
 )
-from fbstab_tpu_torch.models.refine import VariableDF
+from fbstab_tpu_torch.models.refine import (
+    VariableDF,
+    refine_dense_batch,
+    refine_mpc_batch,
+)
+from fbstab_tpu_torch.models.scaling import (
+    DenseScaling,
+    MpcScaling,
+    apply_dense_scaling,
+    apply_mpc_scaling,
+    equilibrate_dense,
+    equilibrate_mpc,
+    ruiz_dense_scaling,
+    ruiz_mpc_scaling,
+)
 from fbstab_tpu_torch.options import Display, Options
 from fbstab_tpu_torch.parallel.adaptive import (
     solve_dense_qp_batch_adaptive,
@@ -48,13 +87,20 @@ from fbstab_tpu_torch.parallel.adaptive import (
 from fbstab_tpu_torch.solver_out import ExitFlag, SolverOut
 
 __all__ = [
-    "CoreOut", "DenseQPData", "Display", "ExitFlag", "FBstabDense",
-    "FBstabMpc", "MpcQPData", "Options", "SolverOut", "Variable",
-    "VariableDF", "batch_data", "dense_qp_data", "fbstab_solve_batch",
-    "mpc_dims", "mpc_qp_data", "solve_dense_qp_batch",
+    "CoreOut", "DENSE_OPS", "DenseQPData", "DenseScaling", "Display",
+    "ExitFlag", "FBstabDense", "FBstabDenseBatch", "FBstabMpc",
+    "FBstabMpcBatch", "MPC_OPS", "MpcQPData", "MpcScaling", "Options",
+    "SolverOut", "Variable", "VariableDF", "apply_dense_scaling",
+    "apply_mpc_scaling", "batch_data", "dense_qp_data", "equilibrate_dense",
+    "equilibrate_mpc", "fbstab_solve", "fbstab_solve_batch",
+    "make_differentiable_batch_solver", "make_differentiable_solver",
+    "make_jvp_solver", "mpc_dims", "mpc_feedback_gain", "mpc_qp_data",
+    "refine_dense_batch", "refine_mpc_batch", "ruiz_dense_scaling",
+    "ruiz_mpc_scaling", "solve_dense_qp", "solve_dense_qp_batch",
     "solve_dense_qp_batch_adaptive", "solve_dense_qp_batch_adaptive_device",
-    "solve_dense_qp_batch_adaptive_schedule", "solve_mpc_qp",
-    "solve_mpc_qp_batch",
-    "solve_mpc_qp_batch_adaptive", "solve_mpc_qp_batch_adaptive_device",
-    "solve_mpc_qp_batch_adaptive_schedule",
+    "solve_dense_qp_batch_adaptive_schedule", "solve_dense_qp_diff",
+    "solve_mpc_qp", "solve_mpc_qp_batch", "solve_mpc_qp_batch_adaptive",
+    "solve_mpc_qp_batch_adaptive_device",
+    "solve_mpc_qp_batch_adaptive_schedule", "solve_mpc_qp_batch_diff",
+    "solve_mpc_qp_diff",
 ]

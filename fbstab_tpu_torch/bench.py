@@ -21,13 +21,20 @@ applications T; `adaptive mixed [B]` is the mixed-difficulty variant):
   warmstart    the receding-horizon sweep, B = 8192 for 8 steps
   million      B = 8192 scenarios for 128 steps (1,048,576 warmstarted QPs)
   mxu          the stage-matvec probe (P1), T = 200
+  diff         the differentiable MPC layer: the gradient of 0.5 |z|^2
+               with respect to every data field through
+               solve_mpc_qp_batch_diff (forward K2 and the refinement,
+               backward one K1 launch), B = 1024 (64 on the CPU, in
+               float64 there, as bench.py)
 
 Each mode prints exactly one JSON line on stdout with bench.py's metric
 name and the keys metric, value, unit and vs_baseline, and a diagnostic
 line on stderr. `vs_baseline` is null: bench.py divides by a per-chip
-target set for a TPU, and the card's own baseline is not set yet. Times
-are host clocks around synchronized calls after a warm call. The modes
-`sharded`, `sparse` and `diff` wait for their modules and exit 2.
+target set for a TPU, and the card's own baseline is not set yet; `diff`
+reports bench.py's own ratio there (the gradient's time over the forward
+solve's). Times are host clocks around synchronized calls after a warm
+call. The modes `sharded` and `sparse` wait for their modules and exit
+2.
 
 Every function runs on the card unless given device="cpu" (the tests'
 tiny sizes), and raises without a CUDA device. Nothing here imports JAX
@@ -53,9 +60,8 @@ from fbstab_tpu_torch.workloads import (
 CONTRACT = 1e-6
 # The modes of bench.py whose modules the port does not have yet.
 NOT_PORTED = {
-    "sharded": "ROADMAP item 1.16 (parallel/sharded.py)",
-    "sparse": "ROADMAP item 1.15 (models/sparse_qp.py)",
-    "diff": "ROADMAP item 1.14 (diff.py)",
+    "sharded": "ROADMAP §1 item 4 (parallel/sharded.py, parallel/ragged.py)",
+    "sparse": "ROADMAP §1 item 3 (models/sparse_qp.py)",
 }
 
 
@@ -592,11 +598,50 @@ def run_mxu(T=None, device=None):
         mxu_shared_ns=round(ns["mxu_shared"], 1)), diag
 
 
+def run_diff(B=None, device=None):
+    """bench.py diff: the differentiable MPC layer's gradient (solve and
+    backward) of a scalar loss of the batched solution with respect to
+    every data field, against the forward batched solve alone. On the
+    card float32 under Options.single_precision() with sigma_vjp = 1e-5;
+    on the CPU float64 under Options() with 1e-9, as bench.py."""
+    from fbstab_tpu_torch.diff import solve_mpc_qp_batch_diff
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    if B is None:
+        B = 64 if on_cpu else 1024
+    dtype = torch.float64 if on_cpu else torch.float32
+    opts = Options() if on_cpu else Options.single_precision()
+    sig = 1e-9 if on_cpu else 1e-5
+    base = build_batch(B, **HEADLINE, device=dev, dtype=dtype)
+    guess = zeros_guess(base)
+
+    def grad(i):
+        data = _fresh_x0(base, i)
+        data = type(data)(*(a.clone().requires_grad_() for a in data))
+        z, _, _ = solve_mpc_qp_batch_diff(data, *guess, opts, sig)
+        (0.5 * (z * z).sum()).backward()
+        return data.x0.grad
+
+    t_fwd, _, _ = _best(lambda i: solve_mpc_qp_batch(
+        _fresh_x0(base, i), *guess, opts))
+    t_grad, g, _ = _best(grad)
+    finite = bool(torch.isfinite(g).all())
+    diag = (f"bench[diff]: device={_where(dev)} B={B} {dtype} "
+            f"fwd={t_fwd:.3f}s grad={t_grad:.3f}s (solve+backward) "
+            f"x0 gradient finite={finite}")
+    rec = _record("mpc_grads_per_chip", round(B / t_grad, 1), "grads/s",
+                  fwd_s=t_fwd, grad_s=t_grad)
+    rec["vs_baseline"] = round(t_grad / max(t_fwd, 1e-9), 3)
+    return rec, diag
+
+
 MODES = {
     "refine": run_refine, "adaptive": run_adaptive, "dense": run_dense,
     "copoly": run_copoly, "longhorizon": run_longhorizon,
     "plants": run_plants, "warmstart": run_warmstart,
-    "million": run_million, "mxu": run_mxu,
+    "million": run_million, "mxu": run_mxu, "diff": run_diff,
 }
 
 

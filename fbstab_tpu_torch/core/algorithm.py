@@ -9,8 +9,10 @@ condition holds (a per-lane `done` mask), which is exactly the value
 evolution `vmap(fbstab_solve)` gives. Lanes are independent, so a lane's
 result is the single-instance result.
 
-This is the plain version of the fused CUDA solver kernel
-(ops/mpc_solve_cuda.py).
+This is the plain version of the fused CUDA solver kernels
+(ops/mpc_solve_cuda.py, ops/dense_solve_cuda.py). `fbstab_solve` is the
+single-instance solve on it, and the only solve that prints the
+Display.ITER / ITER_DETAILED iteration tables (for lane 0 of a batch).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from fbstab_tpu_torch.core.problem import ProblemOps
 from fbstab_tpu_torch.core.residuals import (
     inner_residual,
     penalized_natural_residual,
+    residual_block_norms,
     residual_norm,
 )
 from fbstab_tpu_torch.core.variable import (
@@ -33,7 +36,7 @@ from fbstab_tpu_torch.core.variable import (
     var_axpy,
     var_norm,
 )
-from fbstab_tpu_torch.options import Options
+from fbstab_tpu_torch.options import Display, Options
 from fbstab_tpu_torch.solver_out import ExitFlag
 
 # Depth of the nonmonotone linesearch merit history
@@ -59,13 +62,65 @@ def _pnr_norm(ops, data, x, alpha):
     return residual_norm(penalized_natural_residual(ops, data, x, alpha))
 
 
+class _Table:
+    """Lane 0's iteration tables (reference: PrintIterLine /
+    PrintDetailedLine and their headers, fbstab_algorithm-impl.h:402-489)
+    in the JAX package's format strings, through an OutputStream (stdout
+    when none is given). Made only when Options.display_level asks for a
+    table: every value it prints is read from the device."""
+
+    def __init__(self, level: Display, stream, B: int):
+        from fbstab_tpu_torch.utils.printing import OutputStream
+        self.detailed = level == Display.ITER_DETAILED
+        self.stream = stream or OutputStream()
+        self.ri = 0.0       # lane 0's last subproblem residual norm
+        if B > 1:
+            self.line(f"(iteration table of lane 0 of a batch of {B})")
+        if not self.detailed:
+            self.line("   prox iter  newton iters          |rz|          |rl|"
+                      "          |rv|     Inner res     Inner tol")
+
+    def line(self, fmt: str, **vals) -> None:
+        self.stream.print(fmt.format(**vals) + "\n")
+
+    def outer(self, rk, success, k, n, Ek, inner_tol) -> None:
+        """The outer iteration's line (ITER), or the subproblem's header
+        when it runs (ITER_DETAILED)."""
+        if not self.detailed:
+            bz, bl, bv = (float(a[0]) for a in residual_block_norms(rk))
+            self.line("{k:>12}  {n:>12}  {bz:>12.4e}  {bl:>12.4e}  "
+                      "{bv:>12.4e}  {ri:>12.4e}  {t:>12.4e}",
+                      k=int(k[0]), n=int(n[0]), bz=bz, bl=bl, bv=bv,
+                      ri=self.ri, t=float(inner_tol[0]))
+        elif not bool(success[0]):
+            self.line("Begin Prox Iter: {k}, Total Newton Iters: {n}, "
+                      "Residual: {e:6.4e}\n"
+                      "      Iter   Step Size        |rz|        |rl|"
+                      "        |rv|",
+                      k=int(k[0]), n=int(n[0]), e=float(Ek[0]))
+
+    def inner(self, i, t, ri, Ei, brk, tol) -> None:
+        """The Newton iteration's line and the exit footer
+        (ITER_DETAILED); records the residual norm for the ITER line."""
+        self.ri = float(Ei[0])
+        if not self.detailed:
+            return
+        bz, bl, bv = (float(a[0]) for a in residual_block_norms(ri))
+        self.line("{i:>10}  {t:>10.6e}  {bz:>10.6e}  {bl:>10.6e}  "
+                  "{bv:>10.6e}", i=i, t=float(t[0]), bz=bz, bl=bl, bv=bv)
+        if bool(brk[0]):
+            self.line("Exiting inner loop. Inner residual: {e:6.4e}, "
+                      "Inner tolerance: {t:6.4e}", e=self.ri,
+                      t=float(tol[0]))
+
+
 def _solve_proximal_subproblem(ops: ProblemOps, data, b_vec, xbar: Variable,
                                tol, sigma, Eouter, newton_iters,
-                               opts: Options, run):
+                               opts: Options, run, table=None):
     """Semismooth Newton on x = P(xbar, sigma) for the lanes in `run`
     (impl.h:229-304). Lanes outside `run` return the skip values
-    (xbar, Eo = 0, newton_iters, no failure). Returns
-    (x, Eo, newton_iters, lin_fail)."""
+    (xbar, Eo = 0, newton_iters, no failure). `table`: lane 0's iteration
+    tables (_Table) or None. Returns (x, Eo, newton_iters, lin_fail)."""
     B = run.shape[0]
     dtype, dev = xbar.z.dtype, xbar.z.device
     alpha = opts.alpha
@@ -78,8 +133,11 @@ def _solve_proximal_subproblem(ops: ProblemOps, data, b_vec, xbar: Variable,
     lin_fail = torch.zeros(B, dtype=torch.bool, device=dev)
     Ei_best = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     stall_count = torch.zeros(B, dtype=torch.int32, device=dev)
+    # The step length of lane 0's last Newton step, for the table only.
+    t_last = (torch.ones(B, dtype=dtype, device=dev) if table is not None
+              else None)
 
-    for _ in range(opts.max_inner_iters):
+    for it in range(opts.max_inner_iters):
         act = ~done & ~lin_fail
         if not bool(act.any()):
             break
@@ -99,6 +157,8 @@ def _solve_proximal_subproblem(ops: ProblemOps, data, b_vec, xbar: Variable,
         else:
             stall_new = stall_count
         Ei_best_new = torch.minimum(Ei_best, Ei)
+        if table is not None and bool(act[0]):
+            table.inner(it, t_last, ri, Ei, brk, tol)
 
         step = act & ~brk
         x_new, buf_new, n_new = x, merit_buf, n_iters
@@ -133,6 +193,8 @@ def _solve_proximal_subproblem(ops: ProblemOps, data, b_vec, xbar: Variable,
             # Only successful steps count (impl.h:263-275).
             n_new = torch.where(step & ok, n_iters + 1, n_iters)
             fail = step & ~ok
+            if table is not None:
+                t_last = torch.where(step, t, t_last)
 
         x = select_var(act, x_new, x)
         merit_buf = torch.where(act[:, None], buf_new, merit_buf)
@@ -149,13 +211,18 @@ def _solve_proximal_subproblem(ops: ProblemOps, data, b_vec, xbar: Variable,
 
 
 def fbstab_solve_batch(ops: ProblemOps, data, z0, l0, v0,
-                       options: Options) -> tuple[Variable, CoreOut]:
+                       options: Options, stream=None
+                       ) -> tuple[Variable, CoreOut]:
     """Solves a batch of QP instances from the warmstarts (B, ...).
 
     Per lane this is `fbstab_tpu.core.algorithm.fbstab_solve`: the margin
     y is recomputed as b - A z0, and the returned Variable is the
     solution, the best iterate, or an infeasibility certificate depending
-    on the lane's eflag."""
+    on the lane's eflag.
+
+    stream: the OutputStream (utils/printing.py) that receives lane 0's
+    Display.ITER / ITER_DETAILED tables when Options.display_level asks
+    for them; None prints them to stdout."""
     opts = options.validated()
     B = z0.shape[0]
     dtype, dev = z0.dtype, z0.device
@@ -184,13 +251,19 @@ def fbstab_solve_batch(ops: ProblemOps, data, z0, l0, v0,
     def flag(code):
         return torch.full((B,), int(code), **i32)
 
+    table = (_Table(opts.display_level, stream, B)
+             if opts.display_level >= Display.ITER else None)
+
     for _ in range(opts.max_prox_iters):
         act = ~done
         if not bool(act.any()):
             break
-        Ek_new = _pnr_norm(ops, data, xk, alpha)
+        rk = penalized_natural_residual(ops, data, xk, alpha)
+        Ek_new = residual_norm(rk)
         # Success / stall exit (impl.h:162-169).
         success = (Ek_new <= combo_tol) | (dxn <= opts.stall_tol)
+        if table is not None and bool(act[0]):
+            table.outer(rk, success, prox, newton, Ek_new, inner_tol)
         # Subproblem tolerance update (impl.h:179-180).
         itol = torch.minimum(
             torch.clamp(inner_tol * opts.delta, min=opts.inner_tol_min),
@@ -198,7 +271,8 @@ def fbstab_solve_batch(ops: ProblemOps, data, z0, l0, v0,
 
         run = act & ~success
         xi, Eo, n_iters, lin_fail = _solve_proximal_subproblem(
-            ops, data, b_vec, xk, itol, sigma, Ek_new, newton, opts, run)
+            ops, data, b_vec, xk, itol, sigma, Ek_new, newton, opts, run,
+            table)
 
         # dx <- xi - xk with the margin identity (impl.h:201-203).
         dx = Variable(z=xi.z - xk.z, l=xi.l - xk.l, v=xi.v - xk.v,
@@ -266,3 +340,20 @@ def fbstab_solve_batch(ops: ProblemOps, data, z0, l0, v0,
                    prox_iters=prox, initial_residual=E0,
                    raw_residual=out_res, refine_steps=torch.zeros_like(eflag))
     return out_x, core
+
+
+def fbstab_solve(ops: ProblemOps, data, z0, l0, v0, options: Options,
+                 stream=None) -> tuple[Variable, CoreOut]:
+    """Solves one QP instance (the JAX package's `fbstab_solve`): `data`
+    with a batch of one, the guesses z0 (nz,), l0 (nl,), v0 (nv,)
+    unbatched. Returns the lane's (Variable, CoreOut), unbatched. The
+    Display.ITER / ITER_DETAILED tables go to `stream` (stdout when
+    None)."""
+    for a in data:
+        if a.shape[0] != 1:
+            raise ValueError(f"fbstab_solve takes one instance (a batch of "
+                             f"one), got a batch of {a.shape[0]}")
+    x, core = fbstab_solve_batch(ops, data, z0[None], l0[None], v0[None],
+                                 options, stream)
+    one = lambda a: a[0] if isinstance(a, torch.Tensor) else a
+    return Variable(*(one(a) for a in x)), CoreOut(*(one(a) for a in core))

@@ -24,6 +24,13 @@ def residual_norm(r: Residual):
     return torch.sqrt(s)
 
 
+def residual_block_norms(r: Residual):
+    """Per-lane (|rz|, |rl|, |rv|), the per-block norms of the reference
+    (full_residual.h z_norm()/l_norm()/v_norm()) that the ITER display
+    tables print (fbstab_algorithm-impl.h:414-430)."""
+    return tuple(torch.sqrt((a * a).sum(-1)) for a in r)
+
+
 def inner_residual(ops: ProblemOps, data, x: Variable, xbar: Variable,
                    sigma, alpha) -> Residual:
     """Proximal-subproblem residual (full_residual.cc:49-74):

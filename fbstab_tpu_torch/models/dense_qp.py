@@ -31,12 +31,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
+from fbstab_tpu_torch.core.algorithm import (
+    CoreOut, fbstab_solve, fbstab_solve_batch)
 from fbstab_tpu_torch.core.problem import ProblemOps
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.device import resolve_device
 from fbstab_tpu_torch.models.mpc_qp import (
-    _lane_sigma, _no_stream, exact_f32_matmul)
+    _lane_sigma, exact_f32_matmul, facade_out, facade_print_final,
+    facade_solve)
 from fbstab_tpu_torch.ops.pfb import pfb_weights
 from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
 from fbstab_tpu_torch.options import Options
@@ -237,6 +239,17 @@ DENSE_OPS = ProblemOps(
 DENSE_DIMS_CAP = dict(n=64, q=128, nl=32)
 
 
+def solve_dense_qp(data: DenseQPData, z0, l0, v0,
+                   options: Options = Options()):
+    """Single-instance dense solve (the JAX package's `solve_dense_qp`):
+    the FBstab core on one QP, given as DenseQPData with a batch of one and
+    guesses z0 (nz,), l0 (nl,), v0 (nv,). Returns lane 0's (Variable,
+    CoreOut), unbatched. No equilibration or refinement, as in the JAX
+    package."""
+    exact_f32_matmul(z0)
+    return fbstab_solve(DENSE_OPS, data, z0, l0, v0, options)
+
+
 def _solve_dense_qp_batch_raw(data: DenseQPData, z0, l0, v0,
                               options: Options):
     n, q, nl = dense_dims(data)
@@ -300,16 +313,20 @@ def solve_dense_qp_batch(data: DenseQPData, z0, l0, v0,
 
 class FBstabDense:
     """Allocate-once/solve-many facade for one dense QP at a time; it runs
-    a batch of one through solve_dense_qp_batch, on the card unless given
-    device="cpu" (keyword-only: the positional parameters are the JAX
-    facade's, `stream` fifth). The JAX facade's output stream and Display
-    tables wait for the port of utils/printing.py."""
+    a batch of one through the batched functions above (as FBstabMpc
+    does, mpc_qp.facade_solve), on the card unless given device="cpu"
+    (keyword-only: the positional parameters are the JAX facade's,
+    `stream` fifth).
+
+    stream: the OutputStream (utils/printing.py) that receives the
+    Display.ITER / ITER_DETAILED tables and the FINAL summary; None
+    prints them to stdout."""
 
     def __init__(self, nz: int, nl: int, nv: int, dtype=torch.float64,
                  stream=None, *, device=None):
         if nz <= 0 or nv <= 0 or nl < 0:
             raise ValueError("FBstabDense requires nz > 0, nv > 0, nl >= 0.")
-        _no_stream(stream)
+        self._stream = stream
         self.nz, self.nl, self.nv = nz, nl, nv
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -318,6 +335,12 @@ class FBstabDense:
     def update_options(self, options: Options) -> None:
         """Reference: FBstabDense::UpdateOptions (fbstab_dense.cc:44-48)."""
         self._options = options.validated()
+
+    def set_stream(self, stream) -> None:
+        """Injects the OutputStream that receives all solver output: the
+        iteration tables and the FINAL summary (the reference's
+        Solve(qp, &x, os) hook, tools/output_stream.h:15-38)."""
+        self._stream = stream
 
     @property
     def options(self) -> Options:
@@ -336,8 +359,8 @@ class FBstabDense:
         """Solves one QP given as batched data with B = 1, from the
         warmstart x0 (the origin if omitted); the returned Variable
         replaces it (fbstab_algorithm.h:129-142). Returns lane 0's
-        result."""
-        _no_stream(stream)
+        result. `stream` overrides the FINAL summary's sink for this call
+        (set_stream also takes the iteration tables)."""
         self._validate(data)
         dev = data.H.device
         zeros = lambda n: torch.zeros(1, n, dtype=self.dtype, device=dev)
@@ -345,20 +368,13 @@ class FBstabDense:
             x0 = Variable(z=zeros(self.nz), l=zeros(self.nl),
                           v=zeros(self.nv), y=zeros(self.nv))
         t0 = time.perf_counter()
-        x, core = solve_dense_qp_batch(data, x0.z, x0.l, x0.v,
-                                       self._options)
+        x, core = facade_solve(DENSE_OPS, solve_dense_qp_batch, data, x0.z,
+                               x0.l, x0.v, self._options, self._stream)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        elapsed = time.perf_counter() - t0
-        lane = lambda a: a[0] if isinstance(a, torch.Tensor) else a
-        out = SolverOut(
-            eflag=lane(core.eflag), residual=lane(core.residual),
-            newton_iters=lane(core.newton_iters),
-            prox_iters=lane(core.prox_iters),
-            solve_time=torch.tensor(elapsed),
-            initial_residual=lane(core.initial_residual),
-            raw_residual=lane(core.raw_residual),
-            refine_steps=lane(core.refine_steps))
+        out = facade_out(core, time.perf_counter() - t0)
+        facade_print_final(DENSE_OPS, data, x, out, self._options,
+                           stream or self._stream)
         return x, out
 
     def _validate(self, data: DenseQPData) -> None:
@@ -378,5 +394,5 @@ class FBstabDense:
 
 __all__ = [
     "CoreOut", "DENSE_OPS", "DenseQPData", "FBstabDense", "dense_dims",
-    "dense_qp_data", "solve_dense_qp_batch",
+    "dense_qp_data", "solve_dense_qp", "solve_dense_qp_batch",
 ]

@@ -26,13 +26,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fbstab_tpu_torch.core.algorithm import CoreOut, fbstab_solve_batch
+from fbstab_tpu_torch.core.algorithm import (
+    CoreOut, fbstab_solve, fbstab_solve_batch)
 from fbstab_tpu_torch.core.problem import ProblemOps
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.device import resolve_device
 from fbstab_tpu_torch.ops.pfb import pfb_weights
 from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
-from fbstab_tpu_torch.options import Options
+from fbstab_tpu_torch.options import Display, Options
 from fbstab_tpu_torch.solver_out import ExitFlag, SolverOut
 
 _tri = solve_triangular_small
@@ -583,10 +584,7 @@ def solve_mpc_qp(data: MpcQPData, z0, l0, v0, options: Options = Options(),
                          f"got a batch of {data.x0.shape[0]}")
     ops = _pick_mpc_ops(data, riccati)
     exact_f32_matmul(z0)
-    x, core = fbstab_solve_batch(ops, data, z0[None], l0[None], v0[None],
-                                 options)
-    one = lambda a: a[0] if isinstance(a, torch.Tensor) else a
-    return Variable(*(one(a) for a in x)), CoreOut(*(one(a) for a in core))
+    return fbstab_solve(ops, data, z0, l0, v0, options)
 
 
 def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options,
@@ -679,26 +677,74 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
 # Facade (reference: FBstabMpc, fbstab_mpc.h:56).
 # ------------------------------------------------------------------
 
-def _no_stream(stream) -> None:
-    """The facades take the JAX package's `stream` parameter in its place;
-    an output stream is refused until utils/printing.py is ported."""
-    if stream is not None:
-        raise NotImplementedError(
-            "output streams need the port of utils/printing.py, which is "
-            "not done yet")
+def facade_solve(ops, batch_solve, data, z0, l0, v0, options: Options,
+                 stream):
+    """The single-instance facades' solve of a batch of one: `batch_solve`,
+    the class's batched dispatch (the fused kernels on the card, with the
+    LINEAR_SOLVER_FAILED retry), unless Display.ITER or ITER_DETAILED asks
+    for the iteration tables. Those the lockstep core on `ops` prints to
+    `stream`, as the JAX facades do, when neither equilibration nor
+    refinement is engaged (the product path prints no tables)."""
+    from fbstab_tpu_torch.models.refine import refine_engaged
+    from fbstab_tpu_torch.models.scaling import scaling_engaged
+    if (options.display_level >= Display.ITER
+            and not (scaling_engaged(options, z0.dtype)
+                     or refine_engaged(options, z0.dtype))):
+        exact_f32_matmul(z0)
+        return fbstab_solve_batch(ops, data, z0, l0, v0, options, stream)
+    return batch_solve(data, z0, l0, v0, options)
+
+
+def facade_out(core, elapsed: float) -> SolverOut:
+    """Lane 0 of a batch-of-one CoreOut as the facades' SolverOut."""
+    lane = lambda a: a[0] if isinstance(a, torch.Tensor) else a
+    return SolverOut(
+        eflag=lane(core.eflag), residual=lane(core.residual),
+        newton_iters=lane(core.newton_iters),
+        prox_iters=lane(core.prox_iters),
+        solve_time=torch.tensor(elapsed),
+        initial_residual=lane(core.initial_residual),
+        raw_residual=lane(core.raw_residual),
+        refine_steps=lane(core.refine_steps))
+
+
+def facade_print_final(ops, data, x, out: SolverOut, options: Options,
+                       stream) -> None:
+    """The facades' Display.FINAL summary (fbstab_algorithm-impl.h:
+    491-541): the blockwise penalized natural residual at the returned
+    point (the float32 view of a refined one) and the combined
+    tolerance."""
+    if options.display_level < Display.FINAL:
+        return
+    from fbstab_tpu_torch.core.residuals import (
+        penalized_natural_residual, residual_block_norms)
+    from fbstab_tpu_torch.models.refine import VariableDF
+    from fbstab_tpu_torch.utils.printing import print_final
+    if isinstance(x, VariableDF):
+        x = x.hi()
+    bn = residual_block_norms(penalized_natural_residual(
+        ops, data, x, options.alpha))
+    combo = float(options.abs_tol + options.rel_tol
+                  * (1.0 + ops.forcing_norm(data)[0]))
+    print_final(out, options, stream=stream,
+                block_norms=tuple(b[0] for b in bn), combo_tol=combo)
 
 
 class FBstabMpc:
     """Allocate-once/solve-many facade for one MPC QP at a time; it runs a
-    batch of one through the batched functions above. It solves on the
-    card unless given device="cpu" (keyword-only: the positional
-    parameters are the JAX facade's, `stream` sixth)."""
+    batch of one through the batched functions above (facade_solve). It
+    solves on the card unless given device="cpu" (keyword-only: the
+    positional parameters are the JAX facade's, `stream` sixth).
+
+    stream: the OutputStream (utils/printing.py) that receives the
+    Display.ITER / ITER_DETAILED tables and the FINAL summary; None
+    prints them to stdout."""
 
     def __init__(self, N: int, nx: int, nu: int, nc: int,
                  dtype=torch.float64, stream=None, *, device=None):
         if N <= 0 or nx <= 0 or nu <= 0 or nc <= 0:
             raise ValueError("FBstabMpc requires N, nx, nu, nc > 0.")
-        _no_stream(stream)
+        self._stream = stream
         self.N, self.nx, self.nu, self.nc = N, nx, nu, nc
         self.nz = (N + 1) * (nx + nu)
         self.nl = (N + 1) * nx
@@ -708,16 +754,33 @@ class FBstabMpc:
         self._options = Options.default()
 
     def update_options(self, options: Options) -> None:
+        """Reference: FBstabMpc::UpdateOptions (fbstab_mpc.cc:95-99)."""
         self._options = options.validated()
+
+    def set_stream(self, stream) -> None:
+        """Injects the OutputStream that receives all solver output: the
+        iteration tables and the FINAL summary (the reference's
+        Solve(qp, &x, os) hook, tools/output_stream.h:15-38)."""
+        self._stream = stream
 
     @property
     def options(self) -> Options:
         return self._options
 
-    def solve(self, data: MpcQPData, x0: Optional[Variable] = None
-              ) -> tuple[Variable, SolverOut]:
+    @staticmethod
+    def default_options() -> Options:
+        return Options.default()
+
+    @staticmethod
+    def reliable_options() -> Options:
+        return Options.reliable()
+
+    def solve(self, data: MpcQPData, x0: Optional[Variable] = None,
+              stream=None) -> tuple[Variable, SolverOut]:
         """Solves one QP given as batched data with B = 1, from the
-        warmstart x0 (the origin if omitted). Returns lane 0's result."""
+        warmstart x0 (the origin if omitted). Returns lane 0's result.
+        `stream` overrides the FINAL summary's sink for this call
+        (set_stream also takes the iteration tables)."""
         N, nx, nu, nc = self.N, self.nx, self.nu, self.nc
         if mpc_dims(data) != (N, nx, nu, nc) or data.x0.shape[0] != 1:
             raise ValueError(
@@ -733,19 +796,13 @@ class FBstabMpc:
             x0 = Variable(z=zeros(self.nz), l=zeros(self.nl),
                           v=zeros(self.nv), y=zeros(self.nv))
         t0 = time.perf_counter()
-        x, core = solve_mpc_qp_batch(data, x0.z, x0.l, x0.v, self._options)
+        x, core = facade_solve(MPC_OPS, solve_mpc_qp_batch, data, x0.z,
+                               x0.l, x0.v, self._options, self._stream)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        elapsed = time.perf_counter() - t0
-        lane = lambda a: a[0] if isinstance(a, torch.Tensor) else a
-        out = SolverOut(
-            eflag=lane(core.eflag), residual=lane(core.residual),
-            newton_iters=lane(core.newton_iters),
-            prox_iters=lane(core.prox_iters),
-            solve_time=torch.tensor(elapsed),
-            initial_residual=lane(core.initial_residual),
-            raw_residual=lane(core.raw_residual),
-            refine_steps=lane(core.refine_steps))
+        out = facade_out(core, time.perf_counter() - t0)
+        facade_print_final(MPC_OPS, data, x, out, self._options,
+                            stream or self._stream)
         return x, out
 
 

@@ -159,6 +159,52 @@ def _pnr_df_at_mpc(data: MpcQPData, sol, alpha):
     return _mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha)
 
 
+def refine_mpc_batch(data: MpcQPData, x: Variable,
+                     options: Options = Options(), steps: int = 3
+                     ) -> tuple[VariableDF, torch.Tensor]:
+    """Polishes a batched float32 MPC solution for a fixed number of
+    steps (the JAX package's unrolled `refine_mpc_batch`: no walk window,
+    no early exit). Each correction is one call of the Newton-step
+    dispatch at sigma0 (K1 on the card in float32); a lane whose step is
+    not finite keeps its point. Returns (VariableDF refined point,
+    (steps + 1, B) penalized natural residual history)."""
+    opts = options.validated()
+    N, nx, nu, nc = mpc_dims(data)
+    N1 = N + 1
+    B = x.z.shape[0]
+    alpha = opts.alpha
+    zs = x.z.reshape(B, N1, nx + nu)
+    zx, zu = df(zs[..., :nx]), df(zs[..., nx:])
+    l = df(_stages(x.l, N1, nx))
+    v = df(_stages(x.v, N1, nc))
+    y = _margin(data, zx, zu)
+    history = [_mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha)]
+    for _ in range(steps):
+        rzx, rzu, rl, rv = (df_to(b) for b in _mpc_kkt_residual_df(
+            data, zx, zu, l, v, y, alpha))
+        vh = df_to(v).reshape(B, -1)
+        dz, dl, dv, _, ok = mpc_newton_step(
+            data, vh, df_to(y).reshape(B, -1), vh,
+            -torch.cat([rzx, rzu], -1).reshape(B, -1), -rl.reshape(B, -1),
+            -rv.reshape(B, -1), opts.sigma0, alpha)
+        okm = ok[:, None, None]
+        addf = lambda p, c: df_add(
+            p, df(torch.where(okm, c, torch.zeros_like(c))))
+        dzs = dz.reshape(B, N1, nx + nu)
+        zx = addf(zx, dzs[..., :nx])
+        zu = addf(zu, dzs[..., nx:])
+        l = addf(l, _stages(dl, N1, nx))
+        v = df_max0(addf(v, _stages(dv, N1, nc)))
+        y = _margin(data, zx, zu)
+        history.append(_mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha))
+    zshape = (B, N1 * (nx + nu))
+    refined = VariableDF(
+        z=(torch.cat([zx[0], zu[0]], -1).reshape(zshape),
+           torch.cat([zx[1], zu[1]], -1).reshape(zshape)),
+        l=_flat(l, N1 * nx), v=_flat(v, N1 * nc), y=_flat(y, N1 * nc))
+    return refined, torch.stack(history)
+
+
 def refine_engaged(options: Options, dtype) -> bool:
     """Refinement polishes float32 solves only."""
     return options.refine_steps > 0 and dtype == torch.float32

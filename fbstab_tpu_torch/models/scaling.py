@@ -126,6 +126,15 @@ def apply_mpc_scaling(d: MpcQPData, s: MpcScaling) -> MpcQPData:
         x0=d.x0 / s.dx[:, 0])
 
 
+def equilibrate_mpc(d: MpcQPData, iters: int = RUIZ_ITERS
+                    ) -> tuple[MpcQPData, MpcScaling]:
+    """Ruiz equilibration of a batch of MPC QPs: ruiz_mpc_scaling +
+    apply_mpc_scaling (the JAX package's is one instance, vmapped for
+    batches)."""
+    s = ruiz_mpc_scaling(d, iters)
+    return apply_mpc_scaling(d, s), s
+
+
 def mpc_scale_factors(s: MpcScaling):
     """Flat per-coordinate unscale multipliers (dz, lf, vf, de):
     z = dz z', l = lf l', v = vf v', y = y'/de."""
@@ -220,6 +229,14 @@ def apply_dense_scaling(d: DenseQPData, s: DenseScaling) -> DenseQPData:
     kc = s.kc[:, None]
     return DenseQPData(H=kc[..., None] * Hs, f=kc * s.dz * d.f, G=Gs,
                        h=s.dl * d.h, A=As, b=s.de * d.b)
+
+
+def equilibrate_dense(d: DenseQPData, iters: int = RUIZ_ITERS
+                      ) -> tuple[DenseQPData, DenseScaling]:
+    """Ruiz equilibration of a batch of dense QPs: ruiz_dense_scaling +
+    apply_dense_scaling."""
+    s = ruiz_dense_scaling(d, iters)
+    return apply_dense_scaling(d, s), s
 
 
 def dense_scale_factors(s: DenseScaling):

@@ -37,13 +37,13 @@ MODE_FUNCS = {
     ("adaptive", "mixed"): "run_adaptive_mixed", ("dense",): "run_dense",
     ("copoly",): "run_copoly", ("longhorizon",): "run_longhorizon",
     ("plants",): "run_plants", ("warmstart",): "run_warmstart",
-    ("million",): "run_million", ("mxu",): "run_mxu",
+    ("million",): "run_million", ("mxu",): "run_mxu", ("diff",): "run_diff",
 }
 # tiny sizes: the mode's own argument (B, N or T)
 TINY_ARG = {(): None, ("refine",): 3, ("adaptive",): 3,
             ("adaptive", "mixed"): 3, ("dense",): 4, ("copoly",): 2,
             ("longhorizon",): 8, ("plants",): 2, ("warmstart",): 3,
-            ("million",): 3, ("mxu",): 1}
+            ("million",): 3, ("mxu",): 1, ("diff",): 2}
 
 
 def _reference_bench():
@@ -94,7 +94,11 @@ def test_mode_prints_one_json_line_with_bench_metric(tiny_bench, capsys,
     assert len(out) == 1, out
     rec = json.loads(out[0])
     assert {"metric", "value", "unit", "vs_baseline"} <= set(rec)
-    assert rec["vs_baseline"] is None
+    if mode == ("diff",):
+        # bench.py's own ratio: the gradient's time over the forward's.
+        assert rec["vs_baseline"] > 0
+    else:
+        assert rec["vs_baseline"] is None
     assert rec["value"] > 0
     metrics, _ = _reference_bench()
     assert rec["metric"] == metrics[MODE_FUNCS[mode]]
@@ -115,13 +119,13 @@ def test_modes_are_bench_modes():
     assert set(MODE_FUNCS.values()) <= set(metrics)
 
 
-@pytest.mark.parametrize("mode", ["sharded", "sparse", "diff", "nosuch"])
+@pytest.mark.parametrize("mode", ["sharded", "sparse", "nosuch"])
 def test_unported_and_unknown_modes_exit_2(capsys, mode):
     assert bench.main([mode]) == 2
     cap = capsys.readouterr()
     assert cap.out == ""
     if mode in bench.NOT_PORTED:
-        assert "ROADMAP item 1.1" in cap.err
+        assert "ROADMAP §1 item" in cap.err
 
 
 def test_bench_needs_the_card_unless_told_otherwise(monkeypatch):

@@ -20,7 +20,7 @@ from torch_parity import (  # noqa: E402
 
 from fbstab_tpu_torch.models import dense_qp as td  # noqa: E402
 from fbstab_tpu_torch.ops import dense_solve_cuda  # noqa: E402
-from fbstab_tpu_torch.options import Options  # noqa: E402
+from fbstab_tpu_torch.options import Display, Options  # noqa: E402
 from fbstab_tpu_torch.solver_out import ExitFlag  # noqa: E402
 
 
@@ -86,8 +86,8 @@ def test_reference_dense_oracles(case):
 
 def test_facade_warmstart_validation_and_stream():
     """Warmstarting from the solution exits at once (prox_iters == 0); a
-    wrong shape names its field; output streams wait for the port of
-    utils/printing.py."""
+    wrong shape names its field; a stream given to solve() receives the
+    Display.FINAL summary of that call, and only with display on."""
     solver = _solver(2, 0, 2)
     data = _one(**FEASIBLE)
     x1, out1 = solver.solve(data)
@@ -98,8 +98,22 @@ def test_facade_warmstart_validation_and_stream():
     np.testing.assert_allclose(x2.z.numpy(), x1.z.numpy(), atol=1e-10)
     with pytest.raises(ValueError, match="A has shape"):
         _solver(2, 0, 3).solve(data)
-    with pytest.raises(NotImplementedError):
-        solver.solve(data, stream=object())
+    class Sink:
+        def __init__(self):
+            self.buf = []
+
+        def print(self, msg):
+            self.buf.append(msg)
+
+    quiet = Sink()
+    solver.solve(data, stream=quiet)
+    assert quiet.buf == []
+    sink = Sink()
+    solver.update_options(Options(abs_tol=1e-8, display_level=Display.FINAL))
+    solver.solve(data, stream=sink)
+    text = "".join(sink.buf)
+    assert "Optimization completed!  Exit code: Success" in text
+    assert "Tolerance" in text
     assert td.FBstabDense.reliable_options() == Options.reliable()
 
 
@@ -238,3 +252,26 @@ def test_cuda_kernel_through_the_dispatch(B, n, q, nl):
     assert tuple(x.l[0].shape) == (B, nl)
     res = dense_f64_residual(data, x, opts.alpha)
     assert np.all(res[good] <= 1e-6), res.max()
+
+
+@pytest.mark.cuda
+def test_cuda_facade_float32_default_options_launches_k3():
+    """FBstabDense in float32 on the card with its own default options and
+    no iteration display solves through solve_dense_qp_batch: one instance
+    of the bench shape launches K3 and returns that solve's lane 0."""
+    require_cuda()
+    dev = torch.device("cuda", 0)
+    n, q = 32, 64
+    data = torch_dense_data(dense_arrays(1, n, q, 0), torch.float32, dev)
+    solver = td.FBstabDense(n, 0, q, dtype=torch.float32, device="cuda")
+    assert solver.options.display_level < Display.ITER
+    before = dense_solve_cuda.fbstab_dense_solve_fused.launches
+    x, out = solver.solve(data)
+    torch.cuda.synchronize()
+    assert dense_solve_cuda.fbstab_dense_solve_fused.launches > before
+    guess = tuple(torch.zeros(1, k, dtype=torch.float32, device=dev)
+                  for k in (n, 0, q))
+    xb, cb = td.solve_dense_qp_batch(data, *guess, solver.options)
+    assert int(out.eflag) == int(cb.eflag[0])
+    assert int(out.newton_iters) == int(cb.newton_iters[0])
+    torch.testing.assert_close(x.z, xb.z, rtol=0, atol=0)

@@ -82,6 +82,10 @@ PORT_MODULES = [
     "fbstab_tpu_torch.ops.mxu_probe_cuda",
     "fbstab_tpu_torch.ops.df_probe_cuda",
     "fbstab_tpu_torch.tools.df_probe",
+    "fbstab_tpu_torch.diff",
+    "fbstab_tpu_torch.models.batch_facade",
+    "fbstab_tpu_torch.parallel.sharded",
+    "fbstab_tpu_torch.utils.printing",
     "chip_smoke",
 ]
 

@@ -22,7 +22,7 @@ from fbstab_tpu_torch.models import ocp_fixtures  # noqa: E402
 from fbstab_tpu_torch.models.scaling import (  # noqa: E402
     apply_mpc_scaling, ruiz_mpc_scaling)
 from fbstab_tpu_torch.ops import mpc_solve_cuda  # noqa: E402
-from fbstab_tpu_torch.options import Options  # noqa: E402
+from fbstab_tpu_torch.options import Display, Options  # noqa: E402
 
 
 def _jax_options(profile):
@@ -152,13 +152,16 @@ def test_positional_riccati_in_float32_does_not_raise():
 def test_facade_positional_stream_reaches_the_stream_check(facade):
     """The facades' positional parameters are the JAX facades'
     ((N, nx, nu, nc, dtype, stream) and (nz, nl, nv, dtype, stream)): a
-    positional stream is refused as a stream, and `device` is
-    keyword-only."""
+    positional stream becomes the facade's stream (set_stream replaces
+    it), and `device` is keyword-only."""
     make = dict(FBstabMpc=lambda *a, **k: tm.FBstabMpc(4, 2, 1, 6, *a, **k),
                 FBstabDense=lambda *a, **k: td_.FBstabDense(2, 0, 2, *a,
                                                             **k))[facade]
-    with pytest.raises(NotImplementedError, match="utils/printing.py"):
-        make(torch.float64, object(), device="cpu")
+    sink, other = object(), object()
+    solver = make(torch.float64, sink, device="cpu")
+    assert solver._stream is sink
+    solver.set_stream(other)
+    assert solver._stream is other
     with pytest.raises(TypeError):
         make(torch.float64, None, "cpu")
     assert make(torch.float64, None, device="cpu").device.type == "cpu"
@@ -269,3 +272,61 @@ def test_cuda_kernel_matches_plain_version(case):
     assert (dn <= 2).float().mean().item() >= 0.90
     zerr = (xk.z - xp.z).abs().amax(1) / (1 + xp.z.abs().amax(1))
     assert zerr[both].max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_batch_diff_backward_is_one_k1_launch():
+    """The differentiable batched MPC solve on the card in float32: the
+    forward launches K2, the backward exactly one K1, and the gradient of
+    every data field equals the plain Newton step's backward on the card
+    (1e-3 of the field's largest entry, K1's own tolerance)."""
+    require_cuda()
+    from fbstab_tpu_torch.diff import (
+        make_differentiable_batch_solver, solve_mpc_qp_batch_diff)
+    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
+    from fbstab_tpu_torch.workloads import build_batch, zeros_guess
+
+    data = build_batch(64, 30, 8, 3, 6, "cuda")
+    guess = zeros_guess(data)
+    opts = Options.single_precision()
+
+    def grads(solve, counted):
+        fields = [a.clone().requires_grad_() for a in data]
+        z, _, _ = solve(type(data)(*fields), *guess)
+        torch.cuda.synchronize()
+        riccati_newton_step_batched.launches = 0
+        (0.5 * (z * z).sum()).backward()
+        torch.cuda.synchronize()
+        if counted:
+            assert riccati_newton_step_batched.launches == 1
+        return [f.grad for f in fields]
+
+    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    got = grads(lambda d, *g: solve_mpc_qp_batch_diff(d, *g, opts), True)
+    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches > before
+    plain = make_differentiable_batch_solver(
+        tm.MPC_PLAIN_OPS, tm.solve_mpc_qp_batch, opts, 1e-5)
+    for g, p in zip(got, grads(plain, False)):
+        assert bool(torch.isfinite(g).all())
+        assert (g - p).abs().max().item() <= 1e-3 * (1 + p.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_facade_float32_default_options_launches_k2():
+    """FBstabMpc in float32 on the card with its own default options and no
+    iteration display solves through solve_mpc_qp_batch: one instance of
+    the headline batch launches K2 and returns that solve's lane 0."""
+    require_cuda()
+    from fbstab_tpu_torch.workloads import build_batch, zeros_guess
+
+    data = build_batch(1, 30, 8, 3, 6, "cuda")
+    solver = tm.FBstabMpc(30, 8, 3, 6, dtype=torch.float32, device="cuda")
+    assert solver.options.display_level < Display.ITER
+    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    x, out = solver.solve(data)
+    torch.cuda.synchronize()
+    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches > before
+    xb, cb = tm.solve_mpc_qp_batch(data, *zeros_guess(data), solver.options)
+    assert int(out.eflag) == int(cb.eflag[0])
+    assert int(out.newton_iters) == int(cb.newton_iters[0])
+    torch.testing.assert_close(x.z, xb.z, rtol=0, atol=0)
