@@ -82,7 +82,22 @@ fatal on failure:
      call), each at the 1e-6 contract on every lane with BatchStats equal
      to the host's reduction; refine_mpc_batch (three unrolled steps) on
      the raw headline solution; FBstabDenseBatch at B = 4096 on the dense
-     mode's data with its FINAL summary through an OutputStream.
+     mode's data with its FINAL summary through an OutputStream;
+ 21. the sparse QP class (CSR products on the card, each Newton step's
+     KKT systems factored on the host by the C LDL'), in float64 under
+     Options(abs_tol = 1e-8): `bench.py sparse`'s batch (nz = 400,
+     nl = 40, nv = 200, B = 32) through solve_sparse_qp_batch, held to
+     1e-6 in host float64 on every SUCCESS lane and to solve_dense_qp on
+     three lanes (z within SPARSE_Z_TOL), with the round trips' split
+     (host LDL', copies, the wait for the device) and the device's idle
+     share under torch.profiler; the MPC bridge (mpc_sparse_pattern,
+     mpc_sparse_values) on the headline batch in float64 at B = 256
+     against solve_mpc_qp_batch (the same flags, z within
+     SPARSE_MPC_Z_TOL); the differentiable sparse solve at B = 8 (the
+     gradient of 0.5 |z|^2 + sum(l) with respect to every value array at
+     sigma_vjp = 1e-6) against the same backward on the CPU, within
+     SPARSE_GRAD_TOL of each field's largest gradient. The path launches
+     none of the port's kernels, and its launch counts are read (0).
 
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: for K1-K5 a team of T threads per instance, or per pair and
@@ -145,6 +160,15 @@ K5_TOL = 1e-3
 # --k3-envelope: the shapes (n, q, nl) within the JAX package's dense gate
 # (n <= 64, q <= 128, nl <= 64) at which K3 is surveyed against its plain
 # version; DENSE_DIMS_CAP is the largest box whose corner passes.
+# The sparse phase (21), float64: z against the dense solve of the same
+# lane (abs_tol 1e-8 on a problem with H >= I), the sparse MPC bridge's z
+# against the Riccati solve (tests/test_sparse_solve.py's 1e-6), and the
+# card's gradients against the CPU's, |g_card - g_cpu| <= SPARSE_GRAD_TOL
+# (1 + max |g_cpu|) per field (the card's atomic sums move the last bits;
+# at sigma_vjp = 1e-6 the backward keeps ~1e-9 of that).
+SPARSE_Z_TOL = 1e-7
+SPARSE_MPC_Z_TOL = 1e-6
+SPARSE_GRAD_TOL = 1e-6
 ENVELOPE = ((32, 64, 0), (32, 64, 16), (32, 64, 32), (48, 96, 0),
             (48, 96, 24), (64, 128, 0), (64, 128, 32), (64, 128, 64))
 # --assoc-crossover: the horizons of the double integrator at which the
@@ -1417,6 +1441,142 @@ def phase_refine_unrolled(data, device, steps=3):
     return {"refine_mpc_batch": n}
 
 
+def phase_sparse(device, B=32, B_mpc=256, B_diff=8):
+    import dataclasses
+    import functools
+
+    from fbstab_tpu_torch.diff import (
+        make_differentiable_batch_solver, solve_sparse_qp_diff)
+    from fbstab_tpu_torch.models.dense_qp import dense_qp_data, solve_dense_qp
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.models.sparse_qp import (
+        SparseQPData, mpc_sparse_pattern, mpc_sparse_values,
+        solve_sparse_qp_batch)
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.tools.profile_paths import device_busy
+    from fbstab_tpu_torch.workloads import (
+        SPARSE, sparse_arrays, sparse_batch, sparse_f64_residual)
+
+    f64 = torch.float64
+    opts = Options(abs_tol=1e-8)
+    zeros = lambda pat, n, dev=device: tuple(
+        torch.zeros(n, k, dtype=f64, device=dev)
+        for k in (pat.nz, pat.nl, pat.nv))
+
+    # 1. bench.py sparse's batch.
+    pat, data = sparse_batch(B, device, **SPARSE)
+    guess = zeros(pat, B)
+    solve = lambda: solve_sparse_qp_batch(pat, data, *guess, opts)
+    solve()
+    pat.split.reset()
+    counts = reset_launches()
+    (x, core), ms = timed(solve)
+    n_bench = counts()
+    split = dataclasses.asdict(pat.split)
+    res64 = sparse_f64_residual(pat, data, x, opts.alpha)
+    good = (core.eflag == 0).cpu().numpy()
+    finite = all(bool(torch.isfinite(a).all()) for a in x)
+    plain_ms, prof_ms, events = device_busy(solve)
+    busy = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    a = sparse_arrays(**SPARSE)
+    dd = dense_qp_data(**{k: v[None] for k, v in a.items()}, dtype=f64,
+                       device=device)
+    z_gap = 0.0
+    for lane in (0, B // 2, B - 1):
+        xd, cd = solve_dense_qp(dd._replace(f=dd.f * (1.0 + 1e-4 * lane)),
+                                *(g[0] for g in guess), opts)
+        if int(cd.eflag) != 0 or not good[lane]:
+            fail(f"sparse: lane {lane} did not succeed in both solves")
+        z_gap = max(z_gap, (xd.z - x.z[lane]).abs().max().item())
+    host_ms = 1e3 * (split["host_s"] + split["copy_s"] + split["wait_s"])
+    print(json.dumps({"sparse": dict(
+        B=B, **SPARSE, lnnz=pat.lnnz, knnz=pat.knnz, ms=ms,
+        qps=B / (ms / 1e3), failed_lanes=int((~good).sum()),
+        residual_f64_max_success=float(res64[good].max()),
+        newton_iters_max=int(core.newton_iters.max()),
+        split_ms=dict(round_trips=split["round_trips"],
+                      host_ldl=1e3 * split["host_s"],
+                      copies=1e3 * split["copy_s"],
+                      device_wait=1e3 * split["wait_s"],
+                      rest=ms - host_ms),
+        profiled_ms=prof_ms, device_busy_ms=busy,
+        idle_share=1.0 - busy / prof_ms, device_kernels=len(events),
+        dense_z_gap=z_gap, dense_z_tol=SPARSE_Z_TOL, launches=n_bench)}))
+    if not (finite and tuple(x.z.shape) == (B, pat.nz)):
+        fail("sparse: non-finite values or the wrong shape")
+    if good.mean() < 0.99 or not bool(np.all(res64[good] <= CONTRACT)):
+        fail("sparse: a SUCCESS lane misses 1e-6 in host float64")
+    if z_gap > SPARSE_Z_TOL:
+        fail("sparse: z disagrees with solve_dense_qp")
+
+    # 2. The MPC bridge on the headline batch, in float64.
+    mpc = build_batch(B_mpc, **HEADLINE, device=device, dtype=f64)
+    mpat = mpc_sparse_pattern(*(HEADLINE[k] for k in ("N", "nx", "nu",
+                                                        "nc")))
+    vals = mpc_sparse_values(mpc)
+    mopts = Options(abs_tol=1e-9)
+    mpat.split.reset()
+    counts = reset_launches()
+    (xs, cs), ms_s = timed(lambda: solve_sparse_qp_batch(
+        mpat, vals, *zeros(mpat, B_mpc), mopts))
+    n_mpc = counts()
+    msplit = dataclasses.asdict(mpat.split)
+    (xr, cr), ms_r = timed(lambda: solve_mpc_qp_batch(
+        mpc, *zeros_guess(mpc), mopts))
+    same = bool(torch.equal(cs.eflag, cr.eflag))
+    ok = (cs.eflag == 0) & (cr.eflag == 0)
+    gap = (xs.z - xr.z).abs().amax(1)[ok].max().item() if ok.any() else 0.0
+    print(json.dumps({"sparse_mpc": dict(
+        B=B_mpc, **HEADLINE, lnnz=mpat.lnnz, ms=ms_s,
+        qps=B_mpc / (ms_s / 1e3), riccati_ms=ms_r, same_eflags=same,
+        split_ms=dict(round_trips=msplit["round_trips"],
+                      host_ldl=1e3 * msplit["host_s"],
+                      copies=1e3 * msplit["copy_s"],
+                      device_wait=1e3 * msplit["wait_s"]),
+        success=int(ok.sum()), z_gap=gap, z_tol=SPARSE_MPC_Z_TOL,
+        launches=n_mpc)}))
+    if not same or ok.float().mean().item() < 0.99 or gap > SPARSE_MPC_Z_TOL:
+        fail("sparse: the MPC bridge disagrees with solve_mpc_qp_batch")
+
+    # 3. The differentiable sparse solve, card against CPU.
+    sig = 1e-6
+    diff_opts = Options(abs_tol=1e-10)
+
+    def grads(d, dev):
+        fields = [t.clone().requires_grad_() for t in d]
+        fn = make_differentiable_batch_solver(
+            pat.ops, functools.partial(solve_sparse_qp_batch, pat),
+            diff_opts, sig)
+        z, l, _ = fn(SparseQPData(*fields), *zeros(pat, B_diff, dev))
+        (0.5 * (z * z).sum() + l.sum()).backward()
+        return {k: f.grad.cpu() for k, f in zip(SparseQPData._fields,
+                                                 fields)}, z.detach().cpu()
+
+    sub = SparseQPData(*(t[:B_diff] for t in data))
+    counts = reset_launches()
+    (g_card, z_card), ms_d = timed(lambda: grads(sub, device))
+    n_diff = counts()
+    g_cpu, _ = grads(SparseQPData(*(t.cpu() for t in sub)), "cpu")
+    one = SparseQPData(*(t[:1] for t in sub))
+    z1, _, _ = solve_sparse_qp_diff(pat, one, *(g[0] for g in zeros(pat, 1)),
+                                    diff_opts, sig)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    rel = {k: ((g_card[k] - g_cpu[k]).abs().max()
+               / (1 + g_cpu[k].abs().max())).item() for k in g_card}
+    print(json.dumps({"sparse_diff": dict(
+        B=B_diff, sigma_vjp=sig, ms=ms_d, finite=finite, card_vs_cpu=rel,
+        tol=SPARSE_GRAD_TOL, single_vs_batch_lane0=(
+            z1.cpu() - z_card[0]).abs().max().item(), launches=n_diff)}))
+    if not finite or max(rel.values()) > SPARSE_GRAD_TOL:
+        fail("sparse: the card's gradients miss the CPU's")
+    if (z1.cpu() - z_card[0]).abs().max().item() > 1e-9:
+        fail("sparse: solve_sparse_qp_diff disagrees with lane 0")
+    paths = dict(sparse=n_bench, sparse_mpc=n_mpc, sparse_diff=n_diff)
+    if any(v for n in paths.values() for v in n.values()):
+        fail("sparse: the sparse path launched one of the port's kernels")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the kernels run only on the card")
@@ -1452,10 +1612,12 @@ def main():
     n_diff = phase_diff(1024, device)
     n_gain = phase_feedback_gain(1024, device)
     n_facade = phase_facade(8192, 4096, device)
+    n_sparse = phase_sparse(device)
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
-                 mpc_warmstart=n_warm, **n_diff, **n_gain, **n_facade)
+                 mpc_warmstart=n_warm, **n_diff, **n_gain, **n_facade,
+                 **n_sparse)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",

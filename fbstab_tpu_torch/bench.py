@@ -26,15 +26,20 @@ applications T; `adaptive mixed [B]` is the mixed-difficulty variant):
                solve_mpc_qp_batch_diff (forward K2 and the refinement,
                backward one K1 launch), B = 1024 (64 on the CPU, in
                float64 there, as bench.py)
+  sparse       batched sparse QPs (nz = 400, nl = 40, nv = 200, banded H)
+               through solve_sparse_qp_batch in float64, B = 32: CSR
+               products on the device, each Newton step's KKT systems
+               factored on the host (native LDL'), against the dense
+               single-instance solve_dense_qp looped over the B lanes
 
 Each mode prints exactly one JSON line on stdout with bench.py's metric
 name and the keys metric, value, unit and vs_baseline, and a diagnostic
 line on stderr. `vs_baseline` is null: bench.py divides by a per-chip
 target set for a TPU, and the card's own baseline is not set yet; `diff`
-reports bench.py's own ratio there (the gradient's time over the forward
-solve's). Times are host clocks around synchronized calls after a warm
-call. The modes `sharded` and `sparse` wait for their modules and exit
-2.
+and `sparse` report bench.py's own ratios there (the gradient's time over
+the forward solve's; the dense loop's time over the sparse batch's).
+Times are host clocks around synchronized calls after a warm call. The
+mode `sharded` waits for its modules and exits 2.
 
 Every function runs on the card unless given device="cpu" (the tests'
 tiny sizes), and raises without a CUDA device. Nothing here imports JAX
@@ -61,7 +66,6 @@ CONTRACT = 1e-6
 # The modes of bench.py whose modules the port does not have yet.
 NOT_PORTED = {
     "sharded": "ROADMAP §1 item 4 (parallel/sharded.py, parallel/ragged.py)",
-    "sparse": "ROADMAP §1 item 3 (models/sparse_qp.py)",
 }
 
 
@@ -637,11 +641,61 @@ def run_diff(B=None, device=None):
     return rec, diag
 
 
+def run_sparse(B=None, nz=None, nl=None, nv=None, device=None):
+    """bench.py sparse: the batched sparse solve (float64, Options(abs_tol
+    = 1e-8)) of bench.py's banded problem, timed on a fresh b after a warm
+    call, against the dense single-instance solve of each lane in turn;
+    vs_baseline is bench.py's ratio, the dense time over the sparse."""
+    from fbstab_tpu_torch.models.dense_qp import dense_qp_data, solve_dense_qp
+    from fbstab_tpu_torch.models.sparse_qp import solve_sparse_qp_batch
+    from fbstab_tpu_torch.workloads import SPARSE, sparse_arrays, sparse_batch
+
+    dev = resolve_device(device)
+    B = 32 if B is None else B
+    nz, nl, nv = (SPARSE[k] if a is None else a
+                  for k, a in (("nz", nz), ("nl", nl), ("nv", nv)))
+    opts = Options(abs_tol=1e-8)
+    kw = dict(dtype=torch.float64, device=dev)
+    pat, dB = sparse_batch(B, dev, nz, nl, nv)
+    guess = (torch.zeros(B, nz, **kw), torch.zeros(B, nl, **kw),
+             torch.zeros(B, nv, **kw))
+    solve_sparse_qp_batch(pat, dB, *guess, opts)
+    pat.split.reset()
+    (_, core), t_sparse = _clock(lambda: solve_sparse_qp_batch(
+        pat, dB._replace(b=dB.b * 1.0001), *guess, opts))
+    split = dataclasses.asdict(pat.split)
+    nf = int((core.eflag != int(ExitFlag.SUCCESS)).sum())
+
+    a = sparse_arrays(nz, nl, nv)
+    dd = dense_qp_data(**{k: v[None] for k, v in a.items()}, **kw)
+    one = tuple(g[0] for g in guess)
+    solve_dense_qp(dd, *one, opts)
+
+    def dense_loop():
+        for i in range(B):
+            _, c = solve_dense_qp(dd._replace(f=dd.f * (1.0 + 1e-4 * i)),
+                                  *one, opts)
+            c.residual.item()
+
+    _, t_dense = _clock(dense_loop)
+    diag = (f"bench[sparse]: device={_where(dev)} nz={nz} nl={nl} nv={nv} "
+            f"lnnz={pat.lnnz} B={B} fails={nf} sparse={t_sparse:.2f}s "
+            f"dense={t_dense:.2f}s (round trips {split['round_trips']}, "
+            f"host LDL' {split['host_s']:.3f}s, copies "
+            f"{split['copy_s']:.3f}s, device wait {split['wait_s']:.3f}s)")
+    rec = _record("sparse_qps_host", round(B / t_sparse, 1), "QPs/s",
+                  lnnz=pat.lnnz, fails=nf, sparse_s=t_sparse,
+                  dense_s=t_dense, split=split)
+    rec["vs_baseline"] = round(t_dense / t_sparse, 3)
+    return rec, diag
+
+
 MODES = {
     "refine": run_refine, "adaptive": run_adaptive, "dense": run_dense,
     "copoly": run_copoly, "longhorizon": run_longhorizon,
     "plants": run_plants, "warmstart": run_warmstart,
     "million": run_million, "mxu": run_mxu, "diff": run_diff,
+    "sparse": run_sparse,
 }
 
 

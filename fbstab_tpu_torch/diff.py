@@ -32,7 +32,8 @@ depend on it). Gradients are meaningful where the solve succeeds; at
 degenerate points they are the particular subgradient of the PFB
 C-differential the solver uses, and stay finite.
 
-`solve_sparse_qp_diff` waits for the sparse QP class (ROADMAP §1 item 3).
+For the sparse QP class the backward's Newton step is one batched round
+trip to the host LDL' (models/sparse_qp.py), factor and solve fused.
 """
 
 from __future__ import annotations
@@ -283,6 +284,18 @@ def solve_mpc_qp_diff(data, z0, l0, v0, options: Options = Options(),
     from fbstab_tpu_torch.models.mpc_qp import MPC_OPS
     sig = _default_sig(sigma_vjp, z0.dtype)
     return make_differentiable_solver(MPC_OPS, options, sig)(
+        data, z0, l0, v0)
+
+
+def solve_sparse_qp_diff(pattern, data, z0, l0, v0,
+                         options: Options = Options(),
+                         sigma_vjp: Optional[float] = None):
+    """Differentiable sparse solve of one QP (a batch of one, unbatched
+    guesses) on `pattern` (a SparsePattern): (z, l, v) with gradients for
+    the CSR value arrays and vectors of SparseQPData (Hx, f, Gx, h, Ax,
+    b); the backward pass is one host LDL' round trip."""
+    sig = _default_sig(sigma_vjp, z0.dtype)
+    return make_differentiable_solver(pattern.ops, options, sig)(
         data, z0, l0, v0)
 
 

@@ -8,9 +8,10 @@ B = 8192 on the headline batch, the dense solve at B = 4096, n = 32,
 q = 64, the copolymerization reactor (N = 80) at B = 2048 through tier 2,
 the batched riccati="assoc" solve of it at B = 256, the
 single-instance scan and assoc solves of the double integrator at N = 480,
-and the
+the
 receding-horizon sweep of the headline plant at B = 8192 for 8 steps
-(`bench.py warmstart`) — one
+(`bench.py warmstart`), and, in float64 under Options(abs_tol = 1e-8),
+the sparse batch of `bench.py sparse` (B = 32, its LDL' on the host) — one
 warm call, one timed call (host clock around the
 synchronized call), then one call under torch.profiler. Prints one JSON
 line per path: the plain wall time, the profiled wall time, the device
@@ -45,13 +46,21 @@ def wall_ms(fn):
     return wl.timed(fn)[1]
 
 
-def profile_path(name, fn):
+def device_busy(fn):
+    """One warm call, one timed call, then one call under torch.profiler.
+    Returns (plain wall ms, profiled wall ms, the profiler's device
+    events)."""
     fn()
     plain = wall_ms(fn)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_wall = wall_ms(fn)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return plain, prof_wall, [e for e in prof.events()
+                              if e.device_type == DeviceType.CUDA]
+
+
+def profile_path(name, fn):
+    plain, prof_wall, kernels = device_busy(fn)
     by_name = defaultdict(float)
     for e in kernels:
         by_name[e.name] += e.time_range.end - e.time_range.start
@@ -111,6 +120,12 @@ def main():
     shared = MpcQPData(*(a[:1] for a in mpc))
     profile_path("mpc_warmstart", lambda: simulate_batch(
         shared, 8, mpc.x0, opts))
+    from fbstab_tpu_torch.models.sparse_qp import solve_sparse_qp_batch
+    pat, sp = wl.sparse_batch(32, dev, **wl.SPARSE)
+    sg = tuple(torch.zeros(32, k, dtype=torch.float64, device=dev)
+               for k in (pat.nz, pat.nl, pat.nv))
+    profile_path("sparse", lambda: solve_sparse_qp_batch(
+        pat, sp, *sg, Options(abs_tol=1e-8)))
 
 
 if __name__ == "__main__":

@@ -18,10 +18,12 @@ import numpy as np
 import torch
 
 # bench.py's headline MPC shape, its dense shape (BASELINE config 3) and
-# the copolymerization reactor's shape (`bench.py copoly`).
+# the copolymerization reactor's shape (`bench.py copoly`), and the
+# sparse problem's (`bench.py sparse`).
 HEADLINE = dict(N=30, nx=8, nu=3, nc=6)
 DENSE = dict(n=32, q=64)
 COPOLY = dict(N=80, nx=18, nu=5, nc=10)
+SPARSE = dict(nz=400, nl=40, nv=200)
 
 
 def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
@@ -63,6 +65,42 @@ def dense_arrays(B, n=32, q=64, nl=0, seed=1):
         h = (G @ zf)[..., 0]
         b = b + np.abs(A @ zf)[..., 0]
     return dict(H=H, f=f, G=G, h=h, A=A, b=b)
+
+
+def sparse_arrays(nz=400, nl=40, nv=200, seed=0):
+    """bench.py sparse's problem as dense numpy float64 matrices (one
+    instance): a banded H (2 + U(0, 1) on the diagonal, -0.5 beside it),
+    four Gaussian entries in each of the nl rows of G, three in each of
+    the nv rows of A, f ~ N(0, 1), h ~ 0.1 N(0, 1), b = |N(0, 1)| + 1."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((nz, nz))
+    for i in range(nz):
+        H[i, i] = 2.0 + rng.random()
+        if i + 1 < nz:
+            H[i, i + 1] = H[i + 1, i] = -0.5
+    G = np.zeros((nl, nz))
+    for j in range(nl):
+        G[j, rng.choice(nz, 4, replace=False)] = rng.standard_normal(4)
+    A = np.zeros((nv, nz))
+    for j in range(nv):
+        A[j, rng.choice(nz, 3, replace=False)] = rng.standard_normal(3)
+    f = rng.standard_normal(nz)
+    h = rng.standard_normal(nl) * 0.1
+    b = np.abs(rng.standard_normal(nv)) + 1.0
+    return dict(H=H, f=f, G=G, h=h, A=A, b=b)
+
+
+def sparse_batch(B, device, nz=400, nl=40, nv=200, dtype=torch.float64):
+    """bench.py sparse's batch: the pattern and SparseQPData of
+    sparse_arrays with B lanes, f scaled by 1 + 1e-4 i on lane i."""
+    from fbstab_tpu_torch.models.sparse_qp import sparse_qp_data
+    a = sparse_arrays(nz, nl, nv)
+    pat, d = sparse_qp_data(**{k: v[None] for k, v in a.items()},
+                            dtype=dtype, device=device)
+    scale = 1.0 + 1e-4 * torch.arange(B, dtype=dtype, device=device)
+    lanes = lambda t: t.expand(B, -1).contiguous()
+    return pat, type(d)(*(lanes(t) for t in d))._replace(
+        f=d.f * scale[:, None])
 
 
 def build_batch(B, N, nx, nu, nc, device, dtype=torch.float32):
@@ -181,6 +219,29 @@ def mpc_f64_residual(data, sol, alpha):
     rv = _pnr_rv(-d["d"] - az, vs, alpha)
     sq = lambda a: (a.reshape(B, -1) ** 2).sum(1)
     return np.sqrt(sq(rzx) + sq(rzu) + sq(rl) + sq(rv))
+
+
+def sparse_f64_residual(pat, data, sol, alpha):
+    """The penalized natural residual of SparseQPData on its pattern, in
+    float64 on the host: rz = f + Hz + G'l + A'v, rl = h - Gz, rv at
+    y = b - Az, each CSR product summed with numpy."""
+    d = {k: getattr(data, k).double().cpu().numpy() for k in data._fields}
+    z, l, v = _host(sol)
+
+    def mv(M, vals, x, out_n, transpose=False):
+        rows, cols = (M.indices, M.row_ids) if transpose else (M.row_ids,
+                                                               M.indices)
+        y = np.zeros((x.shape[0], out_n))
+        np.add.at(y, (slice(None), rows), vals * x[:, cols])
+        return y
+
+    rz = (d["f"] + mv(pat.H, d["Hx"], z, pat.nz)
+          + mv(pat.G, d["Gx"], l, pat.nz, True)
+          + mv(pat.A, d["Ax"], v, pat.nz, True))
+    rl = d["h"] - mv(pat.G, d["Gx"], z, pat.nl)
+    rv = _pnr_rv(d["b"] - mv(pat.A, d["Ax"], z, pat.nv), v, alpha)
+    sq = lambda a: (a ** 2).sum(1)
+    return np.sqrt(sq(rz) + sq(rl) + sq(rv))
 
 
 def dense_f64_residual(data, sol, alpha):

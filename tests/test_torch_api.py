@@ -1,5 +1,5 @@
 """PyTorch port: the public API closed against fbstab_tpu's. The exports
-(every name of fbstab_tpu.__all__ but the ten of the sparse QP class),
+(every name of fbstab_tpu.__all__, the sparse QP class's ten included),
 the single-instance solves (`solve_dense_qp`, `fbstab_solve`), the
 equilibration entry points, the unrolled `refine_mpc_batch` (against the
 JAX package's history, and the unrolled contract pins of
@@ -47,11 +47,12 @@ SPARSE_NAMES = {
     "solve_sparse_qp", "solve_sparse_qp_batch", "solve_sparse_qp_diff"}
 
 
-def test_exports_are_the_reference_less_the_sparse_class():
-    """Every name of fbstab_tpu.__all__ is exported by the port, but the
-    ten that wait for models/sparse_qp.py (ROADMAP §1 item 3)."""
+def test_exports_are_the_reference_exports():
+    """Every name of fbstab_tpu.__all__ is exported by the port, the ten
+    of the sparse QP class (models/sparse_qp.py, diff.py) among them."""
     missing = set(fbstab_tpu.__all__) - set(fbstab_tpu_torch.__all__)
-    assert missing == SPARSE_NAMES
+    assert missing == set()
+    assert SPARSE_NAMES <= set(fbstab_tpu_torch.__all__)
     for name in fbstab_tpu_torch.__all__:
         assert hasattr(fbstab_tpu_torch, name), name
     assert fbstab_tpu_torch.DENSE_OPS is tdense.DENSE_OPS

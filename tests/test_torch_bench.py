@@ -119,13 +119,33 @@ def test_modes_are_bench_modes():
     assert set(MODE_FUNCS.values()) <= set(metrics)
 
 
-@pytest.mark.parametrize("mode", ["sharded", "sparse", "nosuch"])
+@pytest.mark.parametrize("mode", ["sharded", "nosuch"])
 def test_unported_and_unknown_modes_exit_2(capsys, mode):
     assert bench.main([mode]) == 2
     cap = capsys.readouterr()
     assert cap.out == ""
     if mode in bench.NOT_PORTED:
         assert "ROADMAP §1 item" in cap.err
+
+
+def test_sparse_mode_prints_bench_keys(monkeypatch, capsys):
+    """`sparse` at a small size on the CPU (nz = 40, nl = 4, nv = 20,
+    B = 3): one JSON line with bench.py's metric and keys, bench.py's
+    ratio (the dense loop's time over the sparse batch's) in vs_baseline,
+    no failed lane, and the round trips' split."""
+    monkeypatch.setattr(bench, "run_sparse", functools.partial(
+        bench.run_sparse, nz=40, nl=4, nv=20))
+    monkeypatch.setitem(bench.MODES, "sparse", bench.run_sparse)
+    assert bench.main(["sparse", "3"], device="cpu") == 0
+    cap = capsys.readouterr()
+    rec = json.loads(cap.out.strip())
+    metrics, _ = _reference_bench()
+    assert rec["metric"] == metrics["run_sparse"] == "sparse_qps_host"
+    assert {"metric", "value", "unit", "vs_baseline"} <= set(rec)
+    assert rec["unit"] == "QPs/s" and rec["value"] > 0
+    assert rec["vs_baseline"] > 0 and rec["fails"] == 0
+    assert rec["split"]["round_trips"] > 0 and rec["lnnz"] > 0
+    assert cap.err.startswith("bench[sparse]: device=cpu nz=40 nl=4 nv=20")
 
 
 def test_bench_needs_the_card_unless_told_otherwise(monkeypatch):

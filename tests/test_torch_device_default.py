@@ -14,7 +14,17 @@ from torch_parity import dense_mixed_batch, mixed_batch  # noqa: E402
 
 from fbstab_tpu_torch import interop  # noqa: E402
 from fbstab_tpu_torch.models import dense_qp, mpc_qp, ocp_fixtures  # noqa
+from fbstab_tpu_torch.models import sparse_qp  # noqa: E402
 from fbstab_tpu_torch.solver_out import ExitFlag  # noqa: E402
+
+# tests/test_sparse_solve.py's feasible QP, as a batch of one.
+SPARSE = {k: np.asarray(v, float)[None] for k, v in dict(
+    H=[[3.0, 1.0], [1.0, 1.0]], f=[10.0, 5.0], G=np.zeros((0, 2)),
+    h=np.zeros(0), A=[[-1.0, 0.0], [0.0, 1.0]], b=[0.0, 0.0]).items()}
+
+
+def _sparse_pattern():
+    return sparse_qp.sparse_qp_data(**SPARSE, device="cpu")[0]
 
 CONSTRUCTORS = {
     "mpc_qp_data": lambda **kw: mpc_qp.mpc_qp_data(**mixed_batch(), **kw),
@@ -30,6 +40,15 @@ CONSTRUCTORS = {
         lambda **kw: ocp_fixtures.spacecraft_relative_motion(3, **kw)[0],
     "FBstabMpc": lambda **kw: mpc_qp.FBstabMpc(4, 2, 1, 6, **kw),
     "FBstabDense": lambda **kw: dense_qp.FBstabDense(2, 0, 2, **kw),
+    "sparse_qp_data": lambda **kw: sparse_qp.sparse_qp_data(**SPARSE,
+                                                            **kw)[1],
+    "pattern_values": lambda **kw: sparse_qp.pattern_values(
+        _sparse_pattern(), **SPARSE, **kw),
+    "sparse_data_from_arrays": lambda **kw: interop.sparse_data_from_arrays(
+        **sparse_qp.pattern_values(_sparse_pattern(), **SPARSE,
+                                   device="cpu")._asdict(), **kw),
+    "FBstabSparse": lambda **kw: sparse_qp.FBstabSparse(_sparse_pattern(),
+                                                        **kw),
 }
 
 
@@ -50,7 +69,7 @@ def test_default_device_is_the_card(name):
 
 def test_cpu_tensors_keep_their_device():
     """Data built from tensors that lie on the CPU stays there, and a
-    facade made for the CPU solves it."""
+    facade made for the CPU solves it (dense and sparse)."""
     arrays = {k: torch.tensor(np.asarray(v, float)[None])
               for k, v in dict(H=[[3.0, 1.0], [1.0, 1.0]], f=[10.0, 5.0],
                                A=[[-1.0, 0.0], [0.0, 1.0]],
@@ -58,4 +77,8 @@ def test_cpu_tensors_keep_their_device():
     data = dense_qp.dense_qp_data(**arrays)
     assert data.H.device.type == "cpu" and tuple(data.G.shape) == (1, 0, 2)
     _, out = dense_qp.FBstabDense(2, 0, 2, device="cpu").solve(data)
+    assert int(out.eflag) == ExitFlag.SUCCESS
+    pat, sdata = sparse_qp.sparse_qp_data(**arrays)
+    assert sdata.Hx.device.type == "cpu" and tuple(sdata.Gx.shape) == (1, 0)
+    _, out = sparse_qp.FBstabSparse(pat, device="cpu").solve(sdata)
     assert int(out.eflag) == ExitFlag.SUCCESS

@@ -86,6 +86,9 @@ PORT_MODULES = [
     "fbstab_tpu_torch.models.batch_facade",
     "fbstab_tpu_torch.parallel.sharded",
     "fbstab_tpu_torch.utils.printing",
+    "fbstab_tpu_torch.models.sparse_qp",
+    "fbstab_tpu_torch.utils.sparse_ldl",
+    "fbstab_tpu_torch.utils.native_ldl",
     "chip_smoke",
 ]
 
