@@ -98,6 +98,21 @@ fatal on failure:
      sigma_vjp = 1e-6) against the same backward on the CPU, within
      SPARSE_GRAD_TOL of each field's largest gradient. The path launches
      none of the port's kernels, and its launch counts are read (0).
+ 22. the batch sharded over torch.distributed (parallel/sharded.py,
+     parallel/ragged.py) on a mesh of one rank, a world of one on NCCL, at
+     the headline's full width (Options.single_precision()):
+     sharded_mpc_solver_fused at B = 8192 against the direct
+     solve_mpc_qp_batch (the same flags and Newton counts, z within
+     Z_TOL, the bit-equal lanes counted), sharded_mpc_solver_adaptive at
+     B = 8192 (phase 1 of 16, phase-2 size 1024), each at the 1e-6
+     contract on every lane; sharded_mpc_solver (the lockstep core, a K1
+     launch a Newton step) at B = 1024 and sharded_dense_solver (no
+     kernel, as in JAX) on the dense mode's data at B = 4096, at the
+     contract on SUCCESS lanes; solve_mpc_ragged at B = 8191 with
+     tile_b = 128 (8191 rows back, the padding out of the counts);
+     dryrun_multichip(1); bench sharded's efficiency. BatchStats equal
+     the host's reduction on every path; the process group ends with the
+     phase.
 
 The next-to-last line is a JSON object describing each kernel (with its
 `design`: for K1-K5 a team of T threads per instance, or per pair and
@@ -1577,6 +1592,143 @@ def phase_sparse(device, B=32, B_mpc=256, B_diff=8):
     return paths
 
 
+def phase_sharded(device, B=8192, B_lock=1024, B_dense=4096):
+    """The batch sharded over torch.distributed on a mesh of one rank
+    (NCCL, a world of one), at the headline's full width: the fused
+    solver (K2 and the refinement's K1 per shard), the adaptive solver,
+    the lockstep solver (K1 a Newton step), the dense lockstep solver (no
+    kernel, as in JAX), the ragged path, the dry run and bench sharded.
+    Every path meets the contract and its BatchStats equal the host's
+    reduction. Ends the process group it starts."""
+    import torch.distributed as dist
+
+    from fbstab_tpu_torch.bench import run_sharded
+    from fbstab_tpu_torch.graft_entry import dryrun_multichip
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.parallel.ragged import solve_mpc_ragged
+    from fbstab_tpu_torch.parallel.sharded import (
+        make_mesh, shard_batch, sharded_dense_solver, sharded_mpc_solver,
+        sharded_mpc_solver_adaptive, sharded_mpc_solver_fused)
+
+    opts = Options.single_precision()
+    mesh = make_mesh()
+    backend, world = str(dist.get_backend()), mesh.size()
+    if "nccl" not in backend or world != 1:
+        fail(f"sharded: a card mesh of one rank on NCCL, got {backend} "
+             f"over {world}")
+    data = build_batch(B, **HEADLINE, device=device)
+    guess = zeros_guess(data)
+    args = shard_batch(mesh, (data, *guess))
+    rows, paths = {}, {}
+
+    def run(tag, solver, a, Bq, reps=3):
+        counts = reset_launches()
+        (x, core, stats), times = drive(lambda: solver(*a), reps=reps)
+        n = counts()
+        _check_stats(f"sharded {tag}", stats, core)
+        rows[tag] = dict(B=Bq, qps=Bq / min(times),
+                         s=[round(t, 4) for t in times], calls=reps + 1,
+                         success=int(stats.num_success), launches=n)
+        paths[f"sharded_{tag}"] = n
+        return x, core, n
+
+    # The fused solver against the direct call on the same data.
+    x_d, core_d = solve_mpc_qp_batch(data, *guess, opts)
+    x, core, n = run("fused", sharded_mpc_solver_fused(mesh, opts), args, B)
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    check_contract("sharded fused", x, core, res64, guess, True)
+    z, zd = x.to_float64().z, x_d.to_float64().z
+    gap = ((z - zd).abs().amax(1) / (1 + zd.abs().amax(1))).max().item()
+    rows["fused"].update(
+        residual_f64_max=float(res64.max()), z_gap=gap,
+        bit_equal_lanes=int((z == zd).all(1).sum()),
+        same_flags=bool(torch.equal(core.eflag, core_d.eflag)),
+        same_newton=bool(torch.equal(core.newton_iters,
+                                     core_d.newton_iters)))
+    if not (rows["fused"]["same_flags"] and rows["fused"]["same_newton"]):
+        fail("sharded fused: flags or Newton counts differ from the direct "
+             "solve_mpc_qp_batch")
+    if gap > Z_TOL or n["K2"] < 1 or n["K1"] < 1:
+        fail("sharded fused: z misses the direct solve, or K2 / K1 did not "
+             "launch")
+
+    # The two-phase adaptive solver per shard.
+    P2 = max(B // 8, 128)
+    x, core, n = run("adaptive", sharded_mpc_solver_adaptive(
+        mesh, opts, phase1_newton_iters=16, phase2_size=P2), args, B)
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    check_contract("sharded adaptive", x, core, res64, guess, True)
+    rows["adaptive"].update(residual_f64_max=float(res64.max()), P2=P2)
+    if n["K2"] < 1 or n["K1"] < 1:
+        fail("sharded adaptive: K2 / K1 did not launch")
+
+    # The lockstep solver: K1 a Newton step of the whole shard.
+    dl = build_batch(B_lock, **HEADLINE, device=device)
+    gl = zeros_guess(dl)
+    x, core, n = run("lockstep", sharded_mpc_solver(mesh, opts),
+                     shard_batch(mesh, (dl, *gl)), B_lock, reps=1)
+    res64 = mpc_f64_residual(dl, x, opts.alpha)
+    good = check_contract("sharded lockstep", x, core, res64, gl, False)
+    slowest = int(core.newton_iters.max())
+    rows["lockstep"].update(
+        residual_f64_max_success=float(res64[good].max()),
+        success_frac=float(good.mean()), newton_max=slowest)
+    if n["K1"] < rows["lockstep"]["calls"] * slowest or n["K2"]:
+        fail("sharded lockstep: fewer K1 launches than Newton steps of the "
+             "slowest lane, or a K2 launch")
+
+    # The dense lockstep solver: no kernel (the plain step), as in JAX.
+    dd = build_dense(B_dense, DENSE["n"], DENSE["q"], 0, device)
+    gd = dense_zeros(dd)
+    x, core, n = run("dense", sharded_dense_solver(mesh, opts),
+                     shard_batch(mesh, (dd, *gd)), B_dense, reps=1)
+    res64 = dense_f64_residual(dd, x, opts.alpha)
+    good = check_contract("sharded dense", x, core, res64, gd, False)
+    rows["dense"].update(residual_f64_max_success=float(res64[good].max()),
+                         success_frac=float(good.mean()),
+                         kernels="none (the plain dense step, as in JAX)")
+    if any(n.values()):
+        fail("sharded dense: the lockstep dense path launched a kernel")
+
+    # A ragged batch: 8191 lanes, padded to 8192 with tile_b = 128.
+    Br = B - 1
+    dr = build_batch(Br, **HEADLINE, device=device)
+    gr = zeros_guess(dr)
+    counts = reset_launches()
+    (x, core, stats), ms = timed(lambda: solve_mpc_ragged(
+        dr, *gr, opts, mesh=mesh, tile_b=128))
+    n = counts()
+    res64 = mpc_f64_residual(dr, x, opts.alpha)
+    check_contract("sharded ragged", x, core, res64, gr, True)
+    _check_stats("sharded ragged", stats, core)
+    rows["ragged"] = dict(B=Br, padded_to=B, rows=int(core.eflag.shape[0]),
+                          num_instances=int(stats.num_instances),
+                          qps=Br / (ms / 1e3), residual_f64_max=float(
+                              res64.max()), launches=n)
+    paths["sharded_ragged"] = n
+    if core.eflag.shape[0] != Br or int(stats.num_instances) != Br:
+        fail("sharded ragged: the padding reached the rows or the counts")
+    if n["K2"] < 1:
+        fail("sharded ragged: K2 did not launch")
+
+    counts = reset_launches()
+    _, ms = timed(lambda: dryrun_multichip(1))
+    paths["sharded_dryrun"] = counts()
+    rows["dryrun"] = dict(ms=ms, launches=paths["sharded_dryrun"])
+    counts = reset_launches()
+    rec, diag = run_sharded(B, device)
+    paths["bench_sharded"] = counts()
+    print(diag)
+    ratio = rec["value"]
+    dist.destroy_process_group()
+    print(json.dumps({"sharded": dict(backend=backend, world=world,
+                                      efficiency=ratio, paths=rows)}))
+    if not ratio > 0:
+        fail("sharded: bench sharded printed no ratio")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: the kernels run only on the card")
@@ -1613,11 +1765,12 @@ def main():
     n_gain = phase_feedback_gain(1024, device)
     n_facade = phase_facade(8192, 4096, device)
     n_sparse = phase_sparse(device)
+    n_sharded = phase_sharded(device)
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
                  mpc_warmstart=n_warm, **n_diff, **n_gain, **n_facade,
-                 **n_sparse)
+                 **n_sparse, **n_sharded)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",

@@ -19,6 +19,8 @@ sweeps on these solves, the batch facades (models/batch_facade.py) bundle
 them with the warmstart carry and the batch statistics, the
 differentiable layer (diff.py) differentiates them implicitly with one
 batched Newton step (the Riccati kernel for the MPC class on the card),
+`parallel/sharded.py` and `parallel/ragged.py` shard a batch over the
+ranks of a torch.distributed world (NCCL on the card, gloo on the CPU),
 and `python -m fbstab_tpu_torch.bench` measures them with the JAX
 package's bench modes. The exports are the JAX package's.
 The JAX package `fbstab_tpu` is the reference this package is tested

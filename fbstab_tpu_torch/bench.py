@@ -31,15 +31,19 @@ applications T; `adaptive mixed [B]` is the mixed-difficulty variant):
                products on the device, each Newton step's KKT systems
                factored on the host (native LDL'), against the dense
                single-instance solve_dense_qp looped over the B lanes
+  sharded      the headline batch (B = 8192; 256 on the CPU) through
+               solve_mpc_qp_batch and through sharded_mpc_solver_fused
+               on a mesh of one rank (NCCL on the card, gloo on the CPU):
+               the sharding layer's per-device efficiency
 
 Each mode prints exactly one JSON line on stdout with bench.py's metric
 name and the keys metric, value, unit and vs_baseline, and a diagnostic
 line on stderr. `vs_baseline` is null: bench.py divides by a per-chip
-target set for a TPU, and the card's own baseline is not set yet; `diff`
-and `sparse` report bench.py's own ratios there (the gradient's time over
-the forward solve's; the dense loop's time over the sparse batch's).
-Times are host clocks around synchronized calls after a warm call. The
-mode `sharded` waits for its modules and exits 2.
+target set for a TPU, and the card's own baseline is not set yet; `diff`,
+`sparse` and `sharded` report bench.py's own ratios there (the gradient's
+time over the forward solve's; the dense loop's time over the sparse
+batch's; the efficiency over 0.85). Times are host clocks around
+synchronized calls after a warm call. An unknown mode exits 2.
 
 Every function runs on the card unless given device="cpu" (the tests'
 tiny sizes), and raises without a CUDA device. Nothing here imports JAX
@@ -63,10 +67,6 @@ from fbstab_tpu_torch.workloads import (
     mpc_f64_residual, timed, zeros_guess)
 
 CONTRACT = 1e-6
-# The modes of bench.py whose modules the port does not have yet.
-NOT_PORTED = {
-    "sharded": "ROADMAP §1 item 4 (parallel/sharded.py, parallel/ragged.py)",
-}
 
 
 def _clock(fn):
@@ -690,28 +690,77 @@ def run_sparse(B=None, nz=None, nl=None, nv=None, device=None):
     return rec, diag
 
 
+def run_sharded(B=None, device=None):
+    """bench.py sharded: the per-device overhead of the sharding layer.
+    The headline batch (float32, Options.single_precision()) through the
+    direct solve_mpc_qp_batch and through sharded_mpc_solver_fused on a
+    mesh of one rank (tile_b None: the same production dispatch on the
+    shard, with the two all-reduces of the statistics), each one warm
+    call (which also builds NCCL's communicator) and the best of 3.
+    Instances are independent and the statistics are the only
+    collectives, so a device's work is the same at any mesh size: the
+    ratio t_direct / t_sharded is what bench.py reports as the per-chip
+    efficiency, and vs_baseline is bench.py's own, the ratio over 0.85.
+    Runs alone (a world of one); a world it starts, it ends."""
+    import torch.distributed as dist
+
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.parallel.sharded import (
+        make_mesh, shard_batch, sharded_mpc_solver_fused)
+    from fbstab_tpu_torch.perf_model import mean_refine_steps
+
+    dev = resolve_device(device)
+    if B is None:
+        B = 256 if dev.type == "cpu" else 8192
+    opts = Options.single_precision()
+    data, guess = _headline(B, dev)
+    started = not (dist.is_available() and dist.is_initialized())
+    mesh = make_mesh(device=dev)
+    try:
+        if mesh.size() != 1:
+            raise RuntimeError(f"bench sharded runs on a mesh of one rank, "
+                               f"not {mesh.size()}")
+        sharded = sharded_mpc_solver_fused(mesh, opts)
+        args = shard_batch(mesh, (data, *guess))
+        t_d, (_, core_d), _ = _best(
+            lambda i: solve_mpc_qp_batch(data, *guess, opts))
+        t_s, (_, core_s, stats), _ = _best(lambda i: sharded(*args))
+        backend = str(dist.get_backend())
+    finally:
+        if started:
+            dist.destroy_process_group()
+    eff = t_d / t_s
+    # Executed refinement steps on each side: the refinement's early exit
+    # depends on the data, so a numerics difference between the two
+    # would show here first.
+    rs_d, rs_s = mean_refine_steps(core_d), mean_refine_steps(core_s)
+    diag = (f"bench[sharded]: device={_where(dev)} backend={backend} B={B} "
+            f"direct {t_d:.3f}s vs sharded {t_s:.3f}s -> per-device "
+            f"efficiency {eff:.3f}; success {int(stats.num_success)}/{B}; "
+            f"refine_steps direct={rs_d:.2f} sharded={rs_s:.2f}")
+    rec = _record("sharding_per_chip_efficiency", round(eff, 4), "ratio",
+                  direct_s=t_d, sharded_s=t_s)
+    rec["vs_baseline"] = round(eff / 0.85, 3)
+    return rec, diag
+
+
 MODES = {
     "refine": run_refine, "adaptive": run_adaptive, "dense": run_dense,
     "copoly": run_copoly, "longhorizon": run_longhorizon,
     "plants": run_plants, "warmstart": run_warmstart,
     "million": run_million, "mxu": run_mxu, "diff": run_diff,
-    "sparse": run_sparse,
+    "sparse": run_sparse, "sharded": run_sharded,
 }
 
 
 def main(argv=None, device=None) -> int:
     """Runs the mode named in argv (sys.argv[1:] by default), prints its
     JSON line on stdout and its diagnostic on stderr; returns the exit
-    code (2 for a mode that is unknown or not ported)."""
+    code (2 for an unknown mode)."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"bench: mode {argv[0]!r} is not ported yet: "
-              f"{NOT_PORTED[argv[0]]}", file=sys.stderr)
-        return 2
     if argv and argv[0] not in MODES:
         print(f"bench: unknown mode {argv[0]!r}; valid modes: "
-              + ", ".join(sorted(list(MODES) + list(NOT_PORTED))),
-              file=sys.stderr)
+              + ", ".join(sorted(MODES)), file=sys.stderr)
         return 2
     dev = resolve_device(device)
     if dev.type == "cuda":

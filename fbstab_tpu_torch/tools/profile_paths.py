@@ -11,7 +11,10 @@ single-instance scan and assoc solves of the double integrator at N = 480,
 the
 receding-horizon sweep of the headline plant at B = 8192 for 8 steps
 (`bench.py warmstart`), and, in float64 under Options(abs_tol = 1e-8),
-the sparse batch of `bench.py sparse` (B = 32, its LDL' on the host) — one
+the sparse batch of `bench.py sparse` (B = 32, its LDL' on the host), and
+the batch sharded over a world of one on NCCL (parallel/sharded.py): the
+fused solver at B = 8192, the lockstep solver (a K1 launch a Newton
+step) at B = 1024 and the dense lockstep solver at B = 4096 — one
 warm call, one timed call (host clock around the
 synchronized call), then one call under torch.profiler. Prints one JSON
 line per path: the plain wall time, the profiled wall time, the device
@@ -126,6 +129,23 @@ def main():
                for k in (pat.nz, pat.nl, pat.nv))
     profile_path("sparse", lambda: solve_sparse_qp_batch(
         pat, sp, *sg, Options(abs_tol=1e-8)))
+    import torch.distributed as dist
+
+    from fbstab_tpu_torch.parallel.sharded import (
+        make_mesh, shard_batch, sharded_dense_solver, sharded_mpc_solver,
+        sharded_mpc_solver_fused)
+    mesh = make_mesh()
+    fused = sharded_mpc_solver_fused(mesh, opts)
+    margs = shard_batch(mesh, (mpc, *mg))
+    profile_path("sharded_fused", lambda: fused(*margs))
+    lock = wl.build_batch(1024, **wl.HEADLINE, device=dev)
+    largs = shard_batch(mesh, (lock, *wl.zeros_guess(lock)))
+    lockstep = sharded_mpc_solver(mesh, opts)
+    profile_path("sharded_lockstep", lambda: lockstep(*largs))
+    dargs = shard_batch(mesh, (dense, *dg))
+    dense_lockstep = sharded_dense_solver(mesh, opts)
+    profile_path("sharded_dense", lambda: dense_lockstep(*dargs))
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

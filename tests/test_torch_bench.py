@@ -38,12 +38,13 @@ MODE_FUNCS = {
     ("copoly",): "run_copoly", ("longhorizon",): "run_longhorizon",
     ("plants",): "run_plants", ("warmstart",): "run_warmstart",
     ("million",): "run_million", ("mxu",): "run_mxu", ("diff",): "run_diff",
+    ("sharded",): "run_sharded",
 }
 # tiny sizes: the mode's own argument (B, N or T)
 TINY_ARG = {(): None, ("refine",): 3, ("adaptive",): 3,
             ("adaptive", "mixed"): 3, ("dense",): 4, ("copoly",): 2,
             ("longhorizon",): 8, ("plants",): 2, ("warmstart",): 3,
-            ("million",): 3, ("mxu",): 1, ("diff",): 2}
+            ("million",): 3, ("mxu",): 1, ("diff",): 2, ("sharded",): 3}
 
 
 def _reference_bench():
@@ -94,8 +95,9 @@ def test_mode_prints_one_json_line_with_bench_metric(tiny_bench, capsys,
     assert len(out) == 1, out
     rec = json.loads(out[0])
     assert {"metric", "value", "unit", "vs_baseline"} <= set(rec)
-    if mode == ("diff",):
-        # bench.py's own ratio: the gradient's time over the forward's.
+    if mode in (("diff",), ("sharded",)):
+        # bench.py's own ratios: the gradient's time over the forward's;
+        # the sharding layer's efficiency over 0.85.
         assert rec["vs_baseline"] > 0
     else:
         assert rec["vs_baseline"] is None
@@ -115,17 +117,16 @@ def test_mode_prints_one_json_line_with_bench_metric(tiny_bench, capsys,
 def test_modes_are_bench_modes():
     """The port's modes are bench.py's; each metric is bench.py's."""
     metrics, modes = _reference_bench()
-    assert modes == set(bench.MODES) | set(bench.NOT_PORTED)
+    assert modes == set(bench.MODES)
     assert set(MODE_FUNCS.values()) <= set(metrics)
 
 
-@pytest.mark.parametrize("mode", ["sharded", "nosuch"])
+@pytest.mark.parametrize("mode", ["nosuch"])
 def test_unported_and_unknown_modes_exit_2(capsys, mode):
     assert bench.main([mode]) == 2
     cap = capsys.readouterr()
     assert cap.out == ""
-    if mode in bench.NOT_PORTED:
-        assert "ROADMAP §1 item" in cap.err
+    assert "unknown mode" in cap.err
 
 
 def test_sparse_mode_prints_bench_keys(monkeypatch, capsys):

@@ -82,3 +82,19 @@ def test_cpu_tensors_keep_their_device():
     assert sdata.Hx.device.type == "cpu" and tuple(sdata.Gx.shape) == (1, 0)
     _, out = sparse_qp.FBstabSparse(pat, device="cpu").solve(sdata)
     assert int(out.eflag) == ExitFlag.SUCCESS
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "entry"])
+def test_sharding_entry_points_need_the_card(monkeypatch, name):
+    """make_mesh() and graft_entry.entry() put their work on the card:
+    without a CUDA device they raise, naming device="cpu", before any
+    process group starts."""
+    import torch.distributed as dist
+
+    from fbstab_tpu_torch import graft_entry
+    from fbstab_tpu_torch.parallel import sharded
+    fn = {"make_mesh": sharded.make_mesh, "entry": graft_entry.entry}[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn()
+    assert not dist.is_initialized()

@@ -85,6 +85,8 @@ PORT_MODULES = [
     "fbstab_tpu_torch.diff",
     "fbstab_tpu_torch.models.batch_facade",
     "fbstab_tpu_torch.parallel.sharded",
+    "fbstab_tpu_torch.parallel.ragged",
+    "fbstab_tpu_torch.graft_entry",
     "fbstab_tpu_torch.utils.printing",
     "fbstab_tpu_torch.models.sparse_qp",
     "fbstab_tpu_torch.utils.sparse_ldl",
