@@ -61,29 +61,48 @@ fatal on failure:
      (N = 80) through tier 2 (K4);
  15. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
      at B = 2048, as `bench.py copoly` runs it, through tier 2;
- 16. the long-horizon phase: the single-instance solve_mpc_qp on the double
+ 16. the JAX package's kernel envelope (`envelope`): (a) the spacecraft
+     plant at N = 160 (_DIMS_CAP's horizon), B = 8192, through
+     solve_mpc_qp_batch(..., Options.single_precision()) with a Newton
+     budget of 400 (the plant needs ~250 steps a lane there) on tier 2
+     (K4; Ruiz, the retry, refinement on K1), every SUCCESS lane at the
+     1e-6 contract in float64, QPs/s, launches and peak memory, then its
+     first 1024 lanes' scaled solve on K4 (K4 alone launched) and on
+     tier 3 in turns (K4 must solve no fewer lanes), and on K4 under the
+     default budget (its exit flags);
+     (b) the double integrator at N = 120 and the copolymerization reactor
+     at N = 85, B = 2048, each on K4 at the contract; (c) K1 (copoly,
+     B = 256), K2 (N = 10, nx = 24, nu = 8, nc = 8, B = 256) and K4 (copoly
+     under the host loop, B = 256) in the recompute-factors mode, launched
+     through their functions with lowmem=True: bit for bit their storing
+     launches, held to their plain versions, std and lowmem timed in
+     turns, with design lines; (d) K2 against its plain version at
+     (N, nx, nu, nc) = (10, 24, 8, 8), B = 1024, and (4, 32, 24, 48),
+     B = 256, K4 at (17, 32, 24, 48), B = 64, with design lines, and K2 at
+     B = 2^22 copoly lanes raising KernelResourceError before any launch;
+ 17. the long-horizon phase: the single-instance solve_mpc_qp on the double
      integrator in float32 with riccati="scan" and "assoc", in turns, at
      N = 120, 240 and 480 (`bench.py longhorizon`'s N), best of 5 each;
- 17. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
+ 18. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
      the copoly batch at B = 256;
- 18. the differentiable layer: the gradient of 0.5 |z|^2 with respect to
+ 19. the differentiable layer: the gradient of 0.5 |z|^2 with respect to
      every data field through solve_mpc_qp_batch_diff at B = 1024 on the
      headline data, float32 under Options.single_precision() with
      sigma_vjp = 1e-5 (forward K2 and the refinement's K1, backward one K1
      launch), held against the same backward on the plain Newton step and
      against a float64 solve and backward on the card's plain path;
- 19. the feedback gain: mpc_feedback_gain on lane 0 of phase 18's
+ 20. the feedback gain: mpc_feedback_gain on lane 0 of phase 19's
      headline data and on the first lane with the most first inputs
      inside their box (a row of K is zero where that input saturates), in
      float32 (its nx tangents one K1 launch), against float64 on the card
      and central differences of the float64 solve;
- 20. the batch facades: FBstabMpcBatch at B = 8192 (a call, a call on the
+ 21. the batch facades: FBstabMpcBatch at B = 8192 (a call, a call on the
      next step's data with the carried shifted warmstart, an adaptive
      call), each at the 1e-6 contract on every lane with BatchStats equal
      to the host's reduction; refine_mpc_batch (three unrolled steps) on
      the raw headline solution; FBstabDenseBatch at B = 4096 on the dense
      mode's data with its FINAL summary through an OutputStream;
- 21. the sparse QP class (CSR products on the card, each Newton step's
+ 22. the sparse QP class (CSR products on the card, each Newton step's
      KKT systems factored on the host by the C LDL'), in float64 under
      Options(abs_tol = 1e-8): `bench.py sparse`'s batch (nz = 400,
      nl = 40, nv = 200, B = 32) through solve_sparse_qp_batch, held to
@@ -98,7 +117,7 @@ fatal on failure:
      sigma_vjp = 1e-6) against the same backward on the CPU, within
      SPARSE_GRAD_TOL of each field's largest gradient. The path launches
      none of the port's kernels, and its launch counts are read (0).
- 22. the batch sharded over torch.distributed (parallel/sharded.py,
+ 23. the batch sharded over torch.distributed (parallel/sharded.py,
      parallel/ragged.py) on a mesh of one rank, a world of one on NCCL, at
      the headline's full width (Options.single_precision()):
      sharded_mpc_solver_fused at B = 8192 against the direct
@@ -134,6 +153,7 @@ value of ASSOC_MIN_HORIZON_CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -144,7 +164,7 @@ import torch
 
 from fbstab_tpu_torch.perf_model import (
     PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound, combine_flops, dense_residual_flops,
-    dense_step_flops, mpc_residual_flops, nbytes, riccati_flops, solve_flops,
+    dense_step_flops, mpc_solve_bound, nbytes, riccati_flops, solve_flops,
     stage_matvec_flops)
 from fbstab_tpu_torch.workloads import (
     COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
@@ -229,13 +249,26 @@ def phase_build():
           + " | ".join(usage))
 
 
-def design_line(name, source, info_fn, dims, per="instance"):
+def mpc_entry(kernel, team=False):
+    """For design_line: the mangled-name prefix of the instantiation of an
+    MPC kernel (K1, K2, K4) that a launch at (N, nx, nu, nc, lowmem) takes:
+    K1's team, whether it stages, whether it stores the factors."""
+    def entry(info, dims):
+        return (f"{kernel}I" + (f"Li{info['team']}E" if team else "")
+                + f"Lb{int(info['smem_bytes'] > 0)}ELb{int(not dims[-1])}E")
+    return entry
+
+
+def design_line(name, source, info_fn, dims, per="instance", entry=None):
     """Prints a kernel's launch shape at `dims` (its C info function) and
-    its ptxas lines; returns the row's `design`. A team runs one `per`."""
+    its ptxas lines (with `entry`, a function of the launch shape and dims,
+    those of the instantiation the launch takes); returns the row's
+    `design`. A team runs one `per`."""
     from fbstab_tpu_torch.ops import _build
 
     lib = _build.load_library()
     info = _build.kernel_info(getattr(lib, info_fn), *dims)
+    which = entry(info, dims) if entry else None
     print(f"{name} design: a team of {info['team']} threads per {per}, "
           f"{info['teams_per_block']} teams per block; "
           f"{info['registers']} registers and {info['local_bytes']} local "
@@ -243,7 +276,8 @@ def design_line(name, source, info_fn, dims, per="instance"):
           f"memory per block"
           + ("" if info["smem_bytes"] else " (the team works in place)")
           + f"; {info['blocks_per_sm']} resident blocks per "
-          f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source)))
+          f"SM | ptxas: " + " | ".join(_build.ptxas_lines(source,
+                                                          entry=which)))
     return (f"team of {info['team']} per {per}, instance-major"
             + ("" if info["smem_bytes"] else ", stage block in device memory"))
 
@@ -344,7 +378,8 @@ def phase_k1(device):
               f"{max_abs:.3e} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
         design = design_line("K1", "riccati.cu", "fb_riccati_info",
-                             tuple(dims.values()))
+                             (*dims.values(), 0),
+                             entry=mpc_entry("riccati_step_kernel", True))
         if not (np.isfinite(err) and err <= tol):
             fail(f"K1 disagrees with its plain version ({tag})")
         rows[f"{tag} B={B}"] = dict(
@@ -416,17 +451,15 @@ def phase_k2(B, device):
     ck, max_abs, ms, plain_ms, _ = compare_solver(
         "K2", fbstab_mpc_solve_fused, fbstab_mpc_solve_plain, data, guess,
         opts, "equilibrated headline")
-    flops = B * solve_flops(
-        riccati_flops(**HEADLINE) + 8 * (HEADLINE["N"] + 1) * HEADLINE["nc"],
-        mpc_residual_flops(**HEADLINE), ck.newton_iters.float().mean().item(),
+    bound_ms, bound_by = mpc_solve_bound(
+        B, *HEADLINE.values(), ck.newton_iters.float().mean().item(),
         ck.prox_iters.float().mean().item())
-    out_bytes = nbytes(*guess) + nbytes(guess[2]) + 5 * 4 * B
-    bound_ms, bound_by = bound(flops, nbytes(*data, *guess) + out_bytes)
     print(f"K2: bound {bound_ms:.4f} ms ({bound_by}; mean newton "
           f"{ck.newton_iters.float().mean().item():.2f}, one linesearch "
           f"trial each)")
     design = design_line("K2", "mpc_solve.cu", "fb_mpc_solve_info",
-                         tuple(HEADLINE.values()))
+                         (*HEADLINE.values(), 0),
+                         entry=mpc_entry("mpc_solve_kernel"))
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 design=design)
@@ -512,9 +545,13 @@ def reset_launches():
                    K3=fbstab_dense_solve_fused, K4=mpc_subproblem_fused,
                    K5=combine_im, P1_perlane=p1.cuda_perlane,
                    P1_shared=p1.cuda_shared, P1_tc=p1.tc_shared, P3=df_probe)
-    for k in kernels.values():
-        k.launches = 0
-    return lambda: {name: k.launches for name, k in kernels.items()}
+    # The recompute-factors kernels of K1, K2 and K4, counted apart.
+    counters = [(name, k, "launches") for name, k in kernels.items()] + [
+        (f"{name}_lowmem", kernels[name], "launches_lowmem")
+        for name in ("K1", "K2", "K4")]
+    for _, k, attr in counters:
+        setattr(k, attr, 0)
+    return lambda: {name: getattr(k, attr) for name, k, attr in counters}
 
 
 def drive(fn, reps=3):
@@ -700,20 +737,16 @@ def phase_k4(B, device):
         data, guess, opts, f"equilibrated copoly N={COPOLY['N']}",
         reps=(1, 1), warm=False)
     launches = (mpc_subproblem_fused.launches - n0) // 2   # per solve
-    N, nx, nc = COPOLY["N"], COPOLY["nx"], COPOLY["nc"]
-    flops = B * solve_flops(
-        riccati_flops(**COPOLY) + 8 * (N + 1) * nc,
-        mpc_residual_flops(**COPOLY), ck.newton_iters.float().mean().item(),
-        ck.prox_iters.float().mean().item())
     # Each launch reads the data and the center and writes the iterate.
-    state = nbytes(*guess) + nbytes(guess[2])
-    bound_ms, bound_by = bound(
-        flops, launches * (nbytes(*data) + 2 * state + 8 * 4 * B))
+    bound_ms, bound_by = mpc_solve_bound(
+        B, *COPOLY.values(), ck.newton_iters.float().mean().item(),
+        ck.prox_iters.float().mean().item(), launches=launches)
     print(f"K4: bound {bound_ms:.4f} ms ({bound_by}; {launches} launches "
           f"per solve, mean newton {ck.newton_iters.float().mean().item():.2f}"
           f", one linesearch trial each)")
     design = design_line("K4", "mpc_subproblem.cu", "fb_mpc_subproblem_info",
-                         tuple(COPOLY.values()))
+                         (*COPOLY.values(), 0),
+                         entry=mpc_entry("mpc_subproblem_kernel"))
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 design=design)
@@ -825,6 +858,370 @@ def phase_copoly(B, device):
     if n["K4"] < 1:
         fail("copoly path did not launch K4")
     return n
+
+
+# The envelope phase's shapes. The K2 corners: the first stage dims whose
+# four stage blocks need more than the default 48 KB of a block, and the
+# JAX package's gate corner at the longest horizon it runs its full-solve
+# kernel at; K4 at the gate corner just past that horizon. (name, dims, B).
+K2_CORNERS = (("nx=24 nu=8 nc=8", dict(N=10, nx=24, nu=8, nc=8), 1024),
+              ("gate corner", dict(N=4, nx=32, nu=24, nc=48), 256))
+K4_CORNER = ("gate corner", dict(N=17, nx=32, nu=24, nc=48), 64)
+# The slice's path at full width: the spacecraft plant at _DIMS_CAP's
+# horizon (bench.py plants' perturbation of x0), B lanes.
+ENVELOPE_PATH = ("spacecraft_relative_motion", 160, 0.001)
+ENVELOPE_NEWTON = 400
+
+
+def _mpc_design(name, kernel, dims, lowmem=False):
+    """design_line of K1 (kernel "riccati_step_kernel"), K2 or K4 at dims
+    (a dict) in a mode."""
+    info_fn, source = dict(
+        riccati_step_kernel=("fb_riccati_info", "riccati.cu"),
+        mpc_solve_kernel=("fb_mpc_solve_info", "mpc_solve.cu"),
+        mpc_subproblem_kernel=("fb_mpc_subproblem_info",
+                               "mpc_subproblem.cu"))[kernel]
+    return design_line(
+        name, source, info_fn, (*dims.values(), int(lowmem)),
+        entry=mpc_entry(kernel, team=kernel == "riccati_step_kernel"))
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _equilibrated(data):
+    from fbstab_tpu_torch.models.scaling import (
+        apply_mpc_scaling, ruiz_mpc_scaling)
+    return apply_mpc_scaling(data, ruiz_mpc_scaling(data))
+
+
+def _turns(fa, fb, reps=1):
+    """Times fa and fb in turns (a, b, b, a; CUDA events, `reps` calls
+    each, after a warm call of each): the mean ms of each."""
+    fa(), fb()
+    ta = [cuda_ms(fa, reps, warm=False)]
+    tb = [cuda_ms(fb, reps, warm=False), cuda_ms(fb, reps, warm=False)]
+    ta.append(cuda_ms(fa, reps, warm=False))
+    return sum(ta) / 2, sum(tb) / 2
+
+
+def envelope_path(device, B, B_turns):
+    """(a): solve_mpc_qp_batch on the spacecraft plant at N = 160, B lanes
+    (tier 2, K4), under Options.single_precision() with a Newton budget of
+    ENVELOPE_NEWTON (the plant needs ~250 Newton steps a lane at N = 160,
+    beyond the default 200): one call, timed, its launches counted, with
+    its peak device memory; then the batch's first B_turns lanes' scaled
+    solve on K4 and on tier 3 in turns (K4, tier 3, tier 3, K4; the first
+    K4 call's launches read), and on K4 under the default budget."""
+    from fbstab_tpu_torch.core.algorithm import fbstab_solve_batch
+    from fbstab_tpu_torch.models.mpc_qp import (
+        MPC_OPS, _solve_mpc_qp_batch_raw, mpc_dims, mpc_solve_tier,
+        riccati_mode, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.models.scaling import (
+        ruiz_mpc_scaling, solve_scaled_mpc)
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.workloads import build_plant
+
+    name, N, pert = ENVELOPE_PATH
+    opts = dataclasses.replace(Options.single_precision(),
+                               max_newton_iters=ENVELOPE_NEWTON)
+    o = opts.validated()
+    data = build_plant(name, N, B, pert, device)
+    dims = mpc_dims(data)
+    guess = zeros_guess(data)
+    tier = mpc_solve_tier(dims, torch.float32, device)
+    mode = riccati_mode(dims, B, device)
+    if tier != 2:
+        fail(f"envelope: {name} N={N} routes to tier {tier}, not K4")
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_launches()
+    (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
+    n = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res64 = mpc_f64_residual(data, x, opts.alpha)
+    good = (core.eflag == 0).cpu().numpy()
+    sol = x.to_float64()
+    if not (all(bool(torch.isfinite(a).all()) for a in sol)
+            and tuple(sol.z.shape) == tuple(guess[0].shape)):
+        fail("envelope path returned non-finite values or the wrong shape")
+    if not bool(np.all(res64[good] <= CONTRACT)):
+        fail("envelope path: a SUCCESS lane misses the contract")
+    flags = {int(f): int(c) for f, c in zip(*np.unique(
+        core.eflag.cpu().numpy(), return_counts=True))}
+    print(f"envelope: {name} N={N} B={B} tier {tier}, {mode} mode, Newton "
+          f"budget {ENVELOPE_NEWTON}: QPs/s {B / (t / 1e3):.1f} "
+          f"({t / 1e3:.3f} s) success_frac {good.mean():.4f} exit flags "
+          f"{flags} residual_f64_max_success "
+          f"{res64[good].max() if good.any() else float('nan'):.3e} "
+          f"residual_f64_max {res64.max():.3e} newton mean "
+          f"{core.newton_iters.float().mean().item():.1f} max "
+          f"{int(core.newton_iters.max())} refine_steps max "
+          f"{int(core.refine_steps.max())} | launches K4 {n['K4']} K2 "
+          f"{n['K2']} K1 {n['K1']} | peak device memory {peak:.2f} GiB")
+    if n["K4"] < 1 or n["K1"] < 1 or n["K2"]:
+        fail("envelope path did not run on K4 and K1")
+
+    # The same lanes' scaled solve through K4 and through tier 3, in turns.
+    d1 = type(data)(*(a[:B_turns] for a in data))
+    g1 = zeros_guess(d1)
+    scal1 = ruiz_mpc_scaling(d1)
+
+    # Tier 3 is the lockstep core on K1 at any shape.
+    solvers = {2: lambda d, z, l, v: _solve_mpc_qp_batch_raw(d, z, l, v, o),
+               3: lambda d, z, l, v: fbstab_solve_batch(MPC_OPS, d, z, l, v,
+                                                        o)}
+
+    def raw(tier_):
+        return timed(lambda: solve_scaled_mpc(
+            solvers[tier_], d1, *g1, o, scal=scal1,
+            skip_residual_rewrite=True))
+    counts = reset_launches()
+    (_, c4), t4 = raw(2)
+    n4 = counts()
+    (_, c3), t3 = raw(3)
+    t3b, t4b = raw(3)[1], raw(2)[1]
+    ms_k4, ms_t3 = (t4 + t4b) / 2, (t3 + t3b) / 2
+    succ = {k: (c.eflag == 0).float().mean().item()
+            for k, c in ((2, c4), (3, c3))}
+    newton = {k: c.newton_iters.float().mean().item()
+              for k, c in ((2, c4), (3, c3))}
+    print(f"envelope turns: {name} N={N} B={B_turns} scaled solve (host "
+          f"clock): K4 (tier 2) {ms_k4:.1f} ms ({n4['K4']} K4 launches, "
+          f"{n4['K1']} K1, {n4['K2']} K2) vs tier 3 (lockstep on K1) "
+          f"{ms_t3:.1f} ms; success_frac K4 {succ[2]:.4f} tier 3 "
+          f"{succ[3]:.4f}; mean newton K4 {newton[2]:.1f} tier 3 "
+          f"{newton[3]:.1f}")
+    if n4["K4"] < 1 or n4["K1"] or n4["K2"]:
+        fail("envelope: the tier-2 solve did not run on K4 alone")
+    if succ[2] < succ[3]:
+        fail("envelope: K4 solves fewer lanes than tier 3")
+    bound_ms, bound_by = mpc_solve_bound(
+        B_turns, *dims, newton[2], c4.prox_iters.float().mean().item(),
+        launches=n4["K4"])
+    print(f"envelope turns: K4 solve bound {bound_ms:.4f} ms ({bound_by})")
+    # Why the budget: the same lanes on K4 under the default one.
+    od = Options.single_precision().validated()
+    (_, cd), td = timed(lambda: solve_scaled_mpc(
+        lambda d, z, l, v: _solve_mpc_qp_batch_raw(d, z, l, v, od), d1, *g1,
+        od, scal=scal1, skip_residual_rewrite=True))
+    flags = {int(f): int(c) for f, c in zip(*np.unique(
+        cd.eflag.cpu().numpy(), return_counts=True))}
+    print(f"envelope: the same {B_turns} lanes on K4 under the default "
+          f"Newton budget {od.max_newton_iters}: exit flags {flags}, mean "
+          f"newton {cd.newton_iters.float().mean().item():.1f} "
+          f"({td:.1f} ms)")
+    return n, dict(B=B, qps=B / (t / 1e3), success_frac=float(good.mean()),
+                   B_turns=B_turns, ms=ms_k4, tier3_ms=ms_t3,
+                   bound_ms=bound_ms, bound_by=bound_by)
+
+
+def envelope_plants(device, B):
+    """(b): the double integrator at N = 120 and the copolymerization
+    reactor at N = 85 through solve_mpc_qp_batch (both tier 2 on K4) at B
+    lanes, each at the contract on SUCCESS lanes."""
+    from fbstab_tpu_torch.models.mpc_qp import (
+        mpc_dims, mpc_solve_tier, riccati_mode, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.workloads import build_plant
+
+    opts = Options.single_precision()
+    out = {}
+    for tag, path, data in (
+            ("double integrator N=120", "envelope_double_integrator",
+             build_plant("double_integrator", 120, B, 0.05, device)),
+            ("copoly N=85", "envelope_copoly",
+             build_copoly(B, device, N=85))):
+        dims = mpc_dims(data)
+        guess = zeros_guess(data)
+        solve_mpc_qp_batch(data, *guess, opts)          # warm
+        counts = reset_launches()
+        (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
+        n = counts()
+        res64 = mpc_f64_residual(data, x, opts.alpha)
+        good = check_contract(f"envelope {tag}", x, core, res64, guess,
+                              False)
+        print(f"envelope: {tag} B={B} tier "
+              f"{mpc_solve_tier(dims, torch.float32, device)}, "
+              f"{riccati_mode(dims, B, device)} mode, QPs/s "
+              f"{B / (t / 1e3):.1f} success_frac {good.mean():.4f} "
+              f"residual_f64_max_success {res64[good].max():.3e} | "
+              f"launches K4 {n['K4']} K2 {n['K2']} K1 {n['K1']}")
+        if n["K4"] < 1:
+            fail(f"envelope {tag} did not launch K4")
+        out[path] = n
+    return out
+
+
+def envelope_lowmem(device):
+    """(c): K1, K2 and K4 in the recompute-factors mode against their
+    storing launch on the same inputs, bit for bit, and against their plain
+    versions; std and lowmem timed in turns. Each lowmem launch that counts
+    is a call of the user-facing function with lowmem=True, its counts set
+    to 0 just before and read just after."""
+    from fbstab_tpu_torch.models.mpc_subfused import (
+        fbstab_mpc_solve_subfused)
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import (
+        fbstab_mpc_solve_fused, fbstab_mpc_solve_plain)
+    from fbstab_tpu_torch.ops.mpc_subproblem_cuda import mpc_subproblem_plain
+    from fbstab_tpu_torch.ops.riccati_cuda import (
+        riccati_newton_step_batched as k1, riccati_newton_step_plain)
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    rows, paths = {}, {}
+    rel = lambda k, p: ((k.double() - p).abs().amax(1)
+                        / (1 + p.abs().amax(1))).max().item()
+
+    # K1 at the copolymerization reactor, B = 256.
+    B = 256
+    data = _equilibrated(build_copoly(B, device))
+    args = newton_step_args(data, opts)
+    std = k1(*args)
+    counts = reset_launches()
+    low = k1(*args, lowmem=True)
+    paths["lowmem_k1"] = counts()
+    plain = riccati_newton_step_plain(*args)
+    err = max(rel(low[0], plain[0]), rel(low[1], plain[1]))
+    ms_std, ms_low = _turns(lambda: k1(*args), lambda: k1(*args, lowmem=True),
+                            reps=5)
+    plain_ms = cuda_ms(lambda: riccati_newton_step_plain(*args), 3)
+    d = data
+    bound_ms, bound_by = bound(
+        B * riccati_flops(**COPOLY),
+        nbytes(d.Q, d.R, d.S, d.A, d.B, d.E, d.L, *args[1:7], *low[:2]))
+    same = _bit_equal(low[:2], std[:2])
+    print(f"K1 lowmem: copoly B={B} bit-equal to the storing step {same}; "
+          f"max rel err vs plain {err:.3e} (tol {K1_TOL}) | std "
+          f"{ms_std:.3f} ms, lowmem {ms_low:.3f} ms (in turns), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    design = _mpc_design("K1 lowmem", "riccati_step_kernel", COPOLY, True)
+    if not same or not err <= K1_TOL:
+        fail("K1 lowmem disagrees with the storing step or the plain one")
+    rows["K1"] = dict(max_abs_err=max((low[i] - plain[i]).abs().max().item()
+                                      for i in range(2)),
+                      ms=ms_low, plain_ms=plain_ms, std_ms=ms_std,
+                      bound_ms=bound_ms, bound_by=bound_by, design=design)
+
+    # K2 at the first K2 corner, B = 256; K4 on the copolymerization reactor
+    # under the host outer loop, B = 256.
+    name, dims, _ = K2_CORNERS[0]
+    cases = (
+        ("K2", "mpc_solve_kernel", dims,
+         _equilibrated(build_batch(256, **dims, device=device)),
+         lambda dd, g, lm: fbstab_mpc_solve_fused(dd, *g, opts, lowmem=lm),
+         fbstab_mpc_solve_plain, f"{name} lowmem", 1),
+        ("K4", "mpc_subproblem_kernel", COPOLY, data,
+         lambda dd, g, lm: fbstab_mpc_solve_subfused(dd, *g, opts,
+                                                     lowmem=lm),
+         lambda *a: fbstab_mpc_solve_subfused(
+             *a, subproblem=mpc_subproblem_plain),
+         f"equilibrated copoly N={COPOLY['N']} lowmem", None))
+    for key, kernel, kd, dd, solve, plain_solve, tag, one in cases:
+        g = zeros_guess(dd)
+        xs, cs = solve(dd, g, False)
+        counts = reset_launches()
+        xl, cl = solve(dd, g, True)
+        paths[f"lowmem_{key.lower()}"] = n = counts()
+        same = (_bit_equal(xl, xs) and _bit_equal(
+            (cl.eflag, cl.newton_iters, cl.prox_iters, cl.residual),
+            (cs.eflag, cs.newton_iters, cs.prox_iters, cs.residual)))
+        ck, max_abs, ms, plain_ms, _ = compare_solver(
+            f"{key} lowmem", lambda dd_, *a: solve(dd_, a[:3], True),
+            plain_solve, dd, g, opts, tag, reps=None)
+        ms_std, ms_low = _turns(lambda: solve(dd, g, False),
+                                lambda: solve(dd, g, True))
+        launches = one or max(n[f"{key}_lowmem"], 1)
+        bound_ms, bound_by = mpc_solve_bound(
+            dd.x0.shape[0], *kd.values(),
+            ck.newton_iters.float().mean().item(),
+            ck.prox_iters.float().mean().item(), launches=launches)
+        print(f"{key} lowmem: {tag} B={dd.x0.shape[0]} bit-equal to the "
+              f"standard launch {same} | std {ms_std:.1f} ms, lowmem "
+              f"{ms_low:.1f} ms (in turns), bound {bound_ms:.4f} ms "
+              f"({bound_by}) | launches {n[key + '_lowmem']} lowmem, "
+              f"{n[key]} standard")
+        design = _mpc_design(f"{key} lowmem", kernel, kd, True)
+        if not same:
+            fail(f"{key} lowmem is not bit-equal to its standard launch")
+        if n[f"{key}_lowmem"] < 1 or n[key]:
+            fail(f"{key} lowmem path did not launch the lowmem kernel alone")
+        rows[key] = dict(max_abs_err=max_abs, ms=ms_low, plain_ms=plain_ms,
+                         std_ms=ms_std, bound_ms=bound_ms, bound_by=bound_by,
+                         design=design)
+    return rows, paths
+
+
+def envelope_corners(device):
+    """(d): K2 against its plain version at the K2 corners and K4 at the
+    gate corner, each with its design line; and the named error of a
+    launch whose scratch the card cannot give."""
+    from fbstab_tpu_torch.models.mpc_subfused import (
+        fbstab_mpc_solve_subfused)
+    from fbstab_tpu_torch.ops._build import KernelResourceError
+    from fbstab_tpu_torch.ops.mpc_solve_cuda import (
+        fbstab_mpc_solve_fused, fbstab_mpc_solve_plain)
+    from fbstab_tpu_torch.ops.mpc_subproblem_cuda import mpc_subproblem_plain
+    from fbstab_tpu_torch.options import Options
+
+    opts = Options.single_precision()
+    shapes = {}
+    corners = [("K2", name, dims, B, fbstab_mpc_solve_fused,
+                fbstab_mpc_solve_plain, "mpc_solve_kernel")
+               for name, dims, B in K2_CORNERS]
+    name, dims, B = K4_CORNER
+    corners.append(("K4", name, dims, B, fbstab_mpc_solve_subfused,
+                    lambda *a: fbstab_mpc_solve_subfused(
+                        *a, subproblem=mpc_subproblem_plain),
+                    "mpc_subproblem_kernel"))
+    for key, name, dims, B, kernel, plain, entry in corners:
+        data = _equilibrated(build_batch(B, **dims, device=device))
+        guess = zeros_guess(data)
+        n0 = reset_launches()
+        ck, max_abs, ms, plain_ms, _ = compare_solver(
+            key, kernel, plain, data, guess, opts,
+            f"{name} N={dims['N']} nx={dims['nx']} nu={dims['nu']} "
+            f"nc={dims['nc']}", reps=None)
+        launches = n0()[key] if key == "K4" else 1
+        bound_ms, bound_by = mpc_solve_bound(
+            B, *dims.values(), ck.newton_iters.float().mean().item(),
+            ck.prox_iters.float().mean().item(), launches=launches)
+        print(f"{key}: {name} bound {bound_ms:.4f} ms ({bound_by})")
+        design = _mpc_design(key, entry, dims)
+        shapes[f"{key} {name} B={B}"] = dict(
+            max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, design=design)
+
+    # Scratch beyond the card: 2^22 lanes of the copolymerization reactor
+    # (views of one lane, nothing allocated) raise before any launch.
+    one = build_copoly(1, device)
+    big = 1 << 22
+    wide = lambda t: t.expand(big, *t.shape[1:])
+    data = type(one)(*(wide(a) for a in one))
+    guess = tuple(wide(t) for t in zeros_guess(one))
+    try:
+        fbstab_mpc_solve_fused(data, *guess, opts)
+    except KernelResourceError as e:
+        print(f"envelope: K2 at B={big} raises KernelResourceError: {e}")
+    else:
+        fail("envelope: K2 past the card's memory did not raise")
+    return shapes
+
+
+def phase_envelope(device, B=8192, B_turns=1024, B_plants=2048):
+    """Phase 16, the JAX package's kernel envelope on the card: (a) the
+    spacecraft path at N = 160 on K4, (b) two more tier-2 plants, (c) the
+    recompute-factors launches of K1, K2 and K4 bit for bit their storing
+    ones, (d) K2 and K4 at the corners of the envelope. Returns the paths'
+    launch counts and the rows for the kernel line."""
+    n_path, path_row = envelope_path(device, B, B_turns)
+    paths = dict(envelope_spacecraft=n_path)
+    paths.update(envelope_plants(device, B_plants))
+    lowmem_rows, lowmem_paths = envelope_lowmem(device)
+    paths.update(lowmem_paths)
+    corners = envelope_corners(device)
+    print(json.dumps({"envelope": dict(path=path_row, corners=corners)}))
+    return paths, lowmem_rows, dict(path_row, corners=corners)
 
 
 def phase_longhorizon(device, Ns=(120, 240, 480), reps=5):
@@ -1759,6 +2156,7 @@ def main():
     n_warm = phase_warmstart(8192, device)
     phase_plants(128, device)
     n_copoly = phase_copoly(2048, device)
+    n_env, lowmem, env = phase_envelope(device)
     n_long, _ = phase_longhorizon(device)
     n_assoc = phase_assoc_batch(256, device)
     n_diff = phase_diff(1024, device)
@@ -1769,8 +2167,8 @@ def main():
     paths = dict(mpc_one_shot=n_oneshot, dense=n_dense, mpc_adaptive=n_adapt,
                  mpc_copoly=n_copoly, mpc_assoc_batch=n_assoc,
                  longhorizon=n_long, bench_mxu=n_mxu, df_probe=n_df,
-                 mpc_warmstart=n_warm, **n_diff, **n_gain, **n_facade,
-                 **n_sparse, **n_sharded)
+                 mpc_warmstart=n_warm, **n_env, **n_diff, **n_gain,
+                 **n_facade, **n_sparse, **n_sharded)
     by_path = lambda k: {p: n[k] for p, n in paths.items()}
     kernels = [
         dict(name="riccati_newton_step", route="cuda",
@@ -1781,7 +2179,9 @@ def main():
         dict(name="fbstab_mpc_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_solve.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1109",
-             launches=n_adapt["K2"], launches_by_path=by_path("K2"), **k2),
+             launches=n_adapt["K2"], launches_by_path=by_path("K2"),
+             shapes={k: v for k, v in env["corners"].items()
+                     if k.startswith("K2")}, **k2),
         dict(name="fbstab_dense_solve_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/dense_solve.cu",
              replaces="fbstab_tpu/ops/dense_solve_pallas.py:421",
@@ -1789,11 +2189,28 @@ def main():
         dict(name="mpc_subproblem_fused", route="cuda",
              source="fbstab_tpu_torch/csrc/mpc_subproblem.cu",
              replaces="fbstab_tpu/ops/mpc_solve_pallas.py:1347",
-             launches=n_copoly["K4"], launches_by_path=by_path("K4"), **k4),
+             launches=n_copoly["K4"], launches_by_path=by_path("K4"),
+             shapes=dict({k: v for k, v in env["corners"].items()
+                          if k.startswith("K4")},
+                         envelope_spacecraft={k: env[k] for k in (
+                             "B", "qps", "success_frac", "B_turns", "ms",
+                             "tier3_ms", "bound_ms", "bound_by")}), **k4),
         dict(name="combine_im", route="cuda",
              source="fbstab_tpu_torch/csrc/assoc_combine.cu",
              replaces="fbstab_tpu/ops/assoc_riccati.py:388",
              launches=n_assoc["K5"], launches_by_path=by_path("K5"), **k5),
+    ] + [
+        dict(name=name, route="cuda", source=f"fbstab_tpu_torch/csrc/{src}",
+             replaces=f"fbstab_tpu/ops/{site}", library_ms=None,
+             launches=n_env[path][f"{key}_lowmem"],
+             launches_by_path=by_path(f"{key}_lowmem"), **lowmem[key])
+        for name, src, site, path, key in (
+            ("riccati_newton_step_lowmem", "riccati.cu",
+             "riccati_pallas.py:539", "lowmem_k1", "K1"),
+            ("fbstab_mpc_solve_fused_lowmem", "mpc_solve.cu",
+             "mpc_solve_pallas.py:1191", "lowmem_k2", "K2"),
+            ("mpc_subproblem_fused_lowmem", "mpc_subproblem.cu",
+             "mpc_solve_pallas.py:1400, :1386", "lowmem_k4", "K4"))
     ] + [
         dict(name=f"mxu_probe_{form}", route="cuda",
              source="fbstab_tpu_torch/csrc/mxu_probe.cu",

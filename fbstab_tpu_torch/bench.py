@@ -132,9 +132,8 @@ def plants_contract_check(B=None, device=None, verbose=True):
     at B lanes with x0 perturbed around the nominal (lane 0), checked in
     float64 on the host against the 1e-6 contract (bench.py's
     plants_contract_check)."""
-    from fbstab_tpu_torch.models import ocp_fixtures
-    from fbstab_tpu_torch.models.mpc_qp import (
-        batch_data, mpc_dims, solve_mpc_qp_batch)
+    from fbstab_tpu_torch.models.mpc_qp import solve_mpc_qp_batch
+    from fbstab_tpu_torch.workloads import build_plant
 
     dev = resolve_device(device)
     if B is None:
@@ -142,16 +141,8 @@ def plants_contract_check(B=None, device=None, verbose=True):
     opts = Options.single_precision()
     worst, per_plant, all_ok = 0.0, {}, True
     for name, N, pert in PLANTS:
-        one, _ = getattr(ocp_fixtures, name)(N, dtype=torch.float32,
-                                             device=dev)
-        nx = mpc_dims(one)[1]
-        rng = np.random.default_rng(7)
-        x0 = one.x0[0].cpu().numpy().astype(np.float64)
-        scale = float(np.max(np.abs(x0))) or 0.02
-        offs = pert * scale * np.abs(rng.standard_normal((B, nx)))
-        offs[0] = 0.0       # lane 0 is the reference's own instance
-        data = batch_data(one, B)._replace(x0=torch.tensor(
-            x0[None] + offs, dtype=torch.float32, device=dev))
+        # Lane 0 is the reference's own instance.
+        data = build_plant(name, N, B, pert, dev)
         x, core = solve_mpc_qp_batch(data, *zeros_guess(data), opts)
         good = (core.eflag == int(ExitFlag.SUCCESS)).cpu().numpy()
         res64 = mpc_f64_residual(data, x, opts.alpha)
@@ -282,7 +273,7 @@ def run_main(B=None, device=None):
     if dev.type == "cuda":
         from fbstab_tpu_torch.ops._build import kernel_info, load_library
         width = kernel_info(load_library().fb_mpc_solve_info,
-                            *HEADLINE.values())["teams_per_block"]
+                            *HEADLINE.values(), 0)["teams_per_block"]
     success = _success(core)
     # x solves the last timed call's problem, x0 scaled by 1 + 3e-6.
     res64 = mpc_f64_residual(_fresh_x0(data, 3), x, opts.alpha)

@@ -100,31 +100,12 @@ __global__ void __launch_bounds__(kThreads)
 
 using DenseKernel = void (*)(DenseDims, int, SolveOpts, DenseArgs);
 
-// The launch K3 takes at these dims on the current device.
-struct K3Launch {
-  DenseKernel kernel;
-  bool stages;
-  long long smem;       // dynamic shared bytes per block
-  long long ws_floats;  // device-memory scratch per instance
-};
-
-K3Launch k3_launch(const DenseDims& D) {
-  const long long smem =
-      4LL * (kThreads / kTeam) * dense_stage_layout(D).total;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const bool stages = smem <= optin;
-  const DenseKernel k = stages ? &dense_solve_kernel<kTeam, true>
-                               : &dense_solve_kernel<kTeam, false>;
-  // Above the default 48 KB a block takes dynamic shared memory only
-  // after it opts in.
-  if (stages && smem > 48 * 1024)
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  return K3Launch{k, stages, stages ? smem : 0,
-                  dense_solve_layout(D, stages).total};
+// The launch K3 takes at these dims on the current device (pick_launch).
+Launch<DenseKernel> k3_launch(const DenseDims& D) {
+  return pick_launch(4LL * (kThreads / kTeam) * dense_stage_layout(D).total,
+                     &dense_solve_kernel<kTeam, true>,
+                     &dense_solve_kernel<kTeam, false>,
+                     [&](bool s) { return dense_solve_layout(D, s).total; });
 }
 
 }  // namespace
@@ -141,19 +122,7 @@ long long fb_dense_ws_floats(int n, int q, int nl) {
 // local (spill) bytes per thread, shared bytes per block (0: the team
 // does not stage), resident blocks per SM. Returns cudaGetLastError().
 int fb_dense_solve_info(int n, int q, int nl, int* info) {
-  const K3Launch l = k3_launch(DenseDims{n, q, nl});
-  cudaFuncAttributes fa;
-  cudaFuncGetAttributes(&fa, l.kernel);
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, kThreads,
-                                                (size_t)l.smem);
-  info[0] = kTeam;
-  info[1] = kThreads / kTeam;
-  info[2] = fa.numRegs;
-  info[3] = (int)fa.localSizeBytes;
-  info[4] = (int)l.smem;
-  info[5] = blocks;
-  return (int)cudaGetLastError();
+  return launch_info(k3_launch(DenseDims{n, q, nl}), kTeam, kThreads, info);
 }
 
 // Launches K3 on `stream`. Arrays are instance-major (B, floats per
@@ -167,7 +136,7 @@ int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
                    float* v, float* y, int* eflag, float* res, int* newton,
                    int* prox, float* res0, float* ws, void* stream) {
   const DenseDims D{n, q, nl};
-  const K3Launch kl = k3_launch(D);
+  const Launch<DenseKernel> kl = k3_launch(D);
   DenseArgs a{H, f, G, h, A, b, z0, l0, v0, z, l, v, y,
               eflag, res, newton, prox, res0, ws, kl.ws_floats};
   const int teams = kThreads / kTeam;

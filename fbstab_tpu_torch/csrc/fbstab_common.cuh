@@ -87,6 +87,55 @@ struct Team {
   FB_DEV bool any(bool x) const { return g.any(x ? 1 : 0) != 0; }
   FB_DEV float bcast(float x, int src) const { return g.shfl(x, src); }
 };
+
+// The launch a kernel takes at some dims on the current device.
+template <typename Kernel>
+struct Launch {
+  Kernel kernel;
+  bool stages;          // the teams keep their stage blocks in shared memory
+  long long smem;       // dynamic shared bytes per block (0: in place)
+  long long ws_floats;  // device-memory scratch per instance
+};
+
+// The staging policy of K1-K4: a block whose teams' stage blocks take
+// `smem` bytes stages them in shared memory where that fits what a block
+// can opt in to on the current device (opting in above the default
+// 48 KB), and its teams work in place otherwise. `staged` and `in_place`
+// are the kernel's two instantiations, ws_floats(stages) their scratch.
+template <typename Kernel, typename WsFloats>
+Launch<Kernel> pick_launch(long long smem, Kernel staged, Kernel in_place,
+                           WsFloats ws_floats) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const bool stages = smem <= optin;
+  const Kernel k = stages ? staged : in_place;
+  if (stages && smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  return Launch<Kernel>{k, stages, stages ? smem : 0, ws_floats(stages)};
+}
+
+// A launch's shape for the kernels' info entries: info[0..5] = threads
+// per team, teams per block, registers per thread, local (spill) bytes per
+// thread, shared bytes per block (0: the teams work in place), resident
+// blocks per SM. Returns cudaGetLastError().
+template <typename Kernel>
+int launch_info(const Launch<Kernel>& l, int team, int threads, int* info) {
+  cudaFuncAttributes fa;
+  cudaFuncGetAttributes(&fa, l.kernel);
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, threads,
+                                                (size_t)l.smem);
+  info[0] = team;
+  info[1] = threads / team;
+  info[2] = fa.numRegs;
+  info[3] = (int)fa.localSizeBytes;
+  info[4] = (int)l.smem;
+  info[5] = blocks;
+  return (int)cudaGetLastError();
+}
 #endif
 
 struct MpcDims {

@@ -2,10 +2,16 @@
 //
 // Replaces the Pallas TPU kernel fbstab_tpu/ops/mpc_solve_pallas.py::
 // fbstab_mpc_solve_fused (kernel body _make_solve_kernel on _build_ctx and
-// _solve_subproblem), standard mode: the whole algorithm for every
-// instance in one launch, outer proximal loop, inner semismooth Newton
-// loop on the shared riccati_factor_solve (riccati.cuh), nonmonotone
-// linesearch, infeasibility checks and exit flags (mpc_solve.cuh).
+// _solve_subproblem) in its modes: the standard grid launch and the serial
+// launch for lowmem or staged (mpc_solve_pallas.py:1191). The whole
+// algorithm for every instance in one launch, outer proximal loop, inner
+// semismooth Newton loop on the shared riccati_factor_solve (riccati.cuh),
+// nonmonotone linesearch, infeasibility checks and exit flags
+// (mpc_solve.cuh). lowmem is the Riccati solve's recompute-factors mode
+// (riccati.cuh), bit for bit the standard mode's; the Pallas kernel's
+// staged mode (per-stage residual and linesearch math, a Mosaic register
+// limit of the TPU) is what the device code does in every mode, a team
+// working stage by stage.
 //
 // Design: a team of 8 threads per instance (a thread_block_tile,
 // fbstab_common.cuh; nx = 8 rows of a stage at the headline), four teams
@@ -18,8 +24,13 @@
 // are instance-major in device memory, so a team's accesses are
 // contiguous; each team works on the current stage in a stage block of
 // shared memory (the Hessians, T = inv(L L'), the vector temporaries and
-// the staged E, L and factors; 2.3 KB at the headline). The wrapper
-// allocates the device-memory scratch; the kernel allocates nothing.
+// the staged E, L and factors; 2.3 KB at the headline, 17.7 KB at
+// nx = 24, nu = 8, nc = 8 and 48.7 KB at the JAX package's gate corner
+// nx = 32, nu = 24, nc = 48), the block opting in to more than the default
+// 48 KB where its four teams need it. Where four stage blocks exceed what a
+// block can hold, the teams work in place, their stage blocks in their
+// device-memory scratch (as K1's do). The wrapper allocates the
+// device-memory scratch; the kernel allocates nothing.
 //
 // What bounds it: the chain of dependent steps per instance, ~11 Newton
 // iterations of one Riccati factor-and-solve (per stage a few dozen team
@@ -59,10 +70,12 @@ struct SolveArgs {
   float *ws;
 };
 
+template <bool S, bool Store>
 __global__ void __launch_bounds__(kThreads)
     mpc_solve_kernel(MpcDims D, int B, SolveOpts o, SolveArgs a) {
   extern __shared__ float smem[];
-  const Team<kTeam> tm{cg::tiled_partition<kTeam>(cg::this_thread_block())};
+  const Team<kTeam, S> tm{
+      cg::tiled_partition<kTeam>(cg::this_thread_block())};
   const int t = threadIdx.x / kTeam;
   const long long b = (long long)blockIdx.x * kTeams + t;
   if (b >= B) return;
@@ -76,53 +89,61 @@ __global__ void __launch_bounds__(kThreads)
   out.prox = a.prox + b;
   out.res0 = a.res0 + b;
   const long long N1 = D.N + 1;
-  const SolveLayout L = solve_layout(D);
-  const RicLayout rl = ric_layout(D);
+  const SolveLayout L = solve_layout(D, !Store, S);
+  const RicLayout rl = ric_layout(D, !Store);
   const Lane ws = lane_im(a.ws, L.total, b);
-  fbstab_mpc_solve_lane(tm, D, o, P, lane_im(a.z0, N1 * (D.nx + D.nu), b),
-                        lane_im(a.l0, N1 * D.nx, b),
-                        lane_im(a.v0, N1 * D.nc, b), out, ws.at(L.step),
-                        Lane{smem + t * rl.stage_floats, 1}, ws.at(L.xk));
+  const Lane fac = ws.at(L.step);
+  fbstab_mpc_solve_lane<Store>(
+      tm, D, o, P, lane_im(a.z0, N1 * (D.nx + D.nu), b),
+      lane_im(a.l0, N1 * D.nx, b), lane_im(a.v0, N1 * D.nc, b), out, fac,
+      S ? Lane{smem + t * rl.stage_floats, 1} : fac.at(rl.stage),
+      ws.at(L.xk));
+}
+
+using SolveKernel = void (*)(MpcDims, int, SolveOpts, SolveArgs);
+
+// The launch K2 takes at these dims, in this mode, on the current device:
+// its teams stage where a block can hold their four stage blocks, and work
+// in place otherwise (pick_launch).
+Launch<SolveKernel> k2_launch(const MpcDims& D, bool lowmem) {
+  return pick_launch(
+      solve_smem_bytes(D),
+      lowmem ? &mpc_solve_kernel<true, false> : &mpc_solve_kernel<true, true>,
+      lowmem ? &mpc_solve_kernel<false, false>
+             : &mpc_solve_kernel<false, true>,
+      [&](bool s) { return solve_layout(D, lowmem, s).total; });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of device-memory scratch per instance.
-long long fb_solve_ws_floats(int N, int nx, int nu, int nc) {
-  return solve_layout(MpcDims{N, nx, nu, nc}).total;
+// Floats of device-memory scratch per instance for the launch at these
+// dims in this mode (lowmem: the recompute-factors mode).
+long long fb_solve_ws_floats(int N, int nx, int nu, int nc, int lowmem) {
+  return k2_launch(MpcDims{N, nx, nu, nc}, lowmem != 0).ws_floats;
 }
 
-// Bytes of shared memory per block.
+// Bytes of shared memory a block of teams that stage asks for.
 long long fb_solve_smem_bytes(int N, int nx, int nu, int nc) {
   return solve_smem_bytes(MpcDims{N, nx, nu, nc});
 }
 
-// K2's launch shape at these dims: info[0..5] = threads per team, teams
-// per block, registers per thread, local (spill) bytes per thread, shared
-// bytes per block, resident blocks per SM. Returns cudaGetLastError().
-int fb_mpc_solve_info(int N, int nx, int nu, int nc, int* info) {
-  cudaFuncAttributes fa;
-  cudaFuncGetAttributes(&fa, mpc_solve_kernel);
-  const long long smem = solve_smem_bytes(MpcDims{N, nx, nu, nc});
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mpc_solve_kernel,
-                                                kThreads, (size_t)smem);
-  info[0] = kTeam;
-  info[1] = kTeams;
-  info[2] = fa.numRegs;
-  info[3] = (int)fa.localSizeBytes;
-  info[4] = (int)smem;
-  info[5] = blocks;
-  return (int)cudaGetLastError();
+// K2's launch shape at these dims in this mode: info[0..5] = threads per
+// team, teams per block, registers per thread, local (spill) bytes per
+// thread, shared bytes per block (0: the teams work in place), resident
+// blocks per SM. Returns cudaGetLastError().
+int fb_mpc_solve_info(int N, int nx, int nu, int nc, int lowmem, int* info) {
+  return launch_info(k2_launch(MpcDims{N, nx, nu, nc}, lowmem != 0), kTeam,
+                     kThreads, info);
 }
 
-// Launches K2 on `stream`. Arrays are instance-major (B, floats per
-// instance); eflag, res, newton, prox, res0 are (B,). Returns
-// cudaGetLastError().
-int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
-                 const float* q, const float* r, const float* c,
+// Launches K2 on `stream` in the standard mode or (lowmem) the
+// recompute-factors mode. Arrays are instance-major (B, floats per
+// instance); eflag, res, newton, prox, res0 are (B,); ws is
+// (B, fb_solve_ws_floats). Returns cudaGetLastError().
+int fb_mpc_solve(int N, int nx, int nu, int nc, int B, int lowmem,
+                 SolveOpts o, const float* q, const float* r, const float* c,
                  const float* x0, const float* d, const float* Q,
                  const float* R, const float* S, const float* A,
                  const float* Bm, const float* E, const float* L,
@@ -133,9 +154,10 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
   SolveArgs a{q, r, c, x0, d, Q, R, S, A, Bm, E, L, z0, l0, v0, z, l, v, y,
               eflag, res, newton, prox, res0, ws};
   const MpcDims D{N, nx, nu, nc};
+  const Launch<SolveKernel> k = k2_launch(D, lowmem != 0);
   const int blocks = (B + kTeams - 1) / kTeams;
-  mpc_solve_kernel<<<blocks, kThreads, (size_t)solve_smem_bytes(D),
-                     (cudaStream_t)stream>>>(D, B, o, a);
+  k.kernel<<<blocks, kThreads, (size_t)k.smem, (cudaStream_t)stream>>>(
+      D, B, o, a);
   return (int)cudaGetLastError();
 }
 

@@ -152,15 +152,16 @@ FB_DEV float fb_residual(const Tm& tm, const MpcDims& D, const SolveOpts& o,
 // One Newton step at x about xbar: reads the negated inner residual from
 // r, writes the step to d (dz, dl by the Riccati solve; dv, dy by the
 // dual recovery, riccati_linear_solver.cc:329-342). Returns false when
-// dz or dl holds a NaN (a failed factorization).
-template <class Tm>
+// dz or dl holds a NaN (a failed factorization). Store: the Riccati
+// solve's storing mode or its recompute-factors mode (riccati.cuh).
+template <bool Store, class Tm>
 FB_DEV bool fb_newton_step(const Tm& tm, const MpcDims& D,
                            const SolveOpts& o, const MpcProb& P,
                            const Vars& x, const Vars& xbar, const Vars& r,
                            const Vars& d, Lane ws, Lane st) {
-  riccati_factor_solve(tm, D, o.sigma, o.alpha, o.om_alpha, P, x.v, x.y,
-                       xbar.v, r.z, r.l, r.v, d.z, d.l, ws, st);
-  const RicLayout rl = ric_layout(D);
+  riccati_factor_solve<Store>(tm, D, o.sigma, o.alpha, o.om_alpha, P, x.v,
+                              x.y, xbar.v, r.z, r.l, r.v, d.z, d.l, ws, st);
+  const RicLayout rl = ric_layout(D, !Store);
   const int nc = D.nc, T = tm.size(), me = tm.rank();
   const long long N1 = D.N + 1;
   for (int k = me; k < N1 * nc; k += T) {
@@ -219,8 +220,10 @@ FB_DEV void fb_feasibility(const Tm& tm, const MpcDims& D, const MpcProb& P,
 }
 
 // The MPC problem class of fbstab_solve.cuh: data P of dims D, the
-// Riccati factors' scratch ws and the stage block st, run by team tm.
-template <class Tm>
+// Riccati factors' scratch ws and the stage block st, run by team tm, the
+// Riccati solve in its storing mode or (Store false) its recompute-factors
+// mode.
+template <class Tm, bool Store>
 struct MpcSolveProb {
   Tm tm;
   MpcDims D;
@@ -263,7 +266,7 @@ struct MpcSolveProb {
   FB_DEV bool newton_step(const SolveOpts& o, const Vars& x,
                           const Vars& xbar, const Vars& r,
                           const Vars& d) const {
-    return fb_newton_step(tm, D, o, P, x, xbar, r, d, ws, st);
+    return fb_newton_step<Store>(tm, D, o, P, x, xbar, r, d, ws, st);
   }
   FB_DEV void feasibility(const Vars& dx, float tol, bool& p_inf,
                           bool& d_inf) const {
@@ -284,29 +287,35 @@ FB_HD long long mpc_vars_floats(const MpcDims& D) {
   return fb_vars_floats(N1 * (D.nx + D.nu), N1 * D.nx, N1 * D.nc);
 }
 
-// K2's scratch per instance in device memory: the Riccati factors, then
-// the iterates (the stage block lives in shared memory).
-FB_HD SolveLayout solve_layout(const MpcDims& D) {
-  return fb_solve_layout(ric_layout(D).stage, mpc_vars_floats(D));
+// K2's scratch per instance in device memory: the Riccati factors (and the
+// stage block for a team that does not stage), then the iterates.
+FB_HD SolveLayout solve_layout(const MpcDims& D, bool lowmem, bool stages) {
+  return fb_solve_layout(ric_ws_floats(D, lowmem, stages),
+                         mpc_vars_floats(D));
 }
 
-// K4's scratch per instance in device memory: the Riccati factors, then
-// the step d, the trial point xt and the negated residual r (xk and xi are
-// the kernel's input and output).
-FB_HD long long subproblem_ws_floats(const MpcDims& D) {
-  return ric_layout(D).stage + 3 * mpc_vars_floats(D);
+// K4's scratch per instance in device memory: the Riccati factors (and the
+// stage block for a team that does not stage), then the step d, the trial
+// point xt and the negated residual r (xk and xi are the kernel's input
+// and output).
+FB_HD long long subproblem_ws_floats(const MpcDims& D, bool lowmem,
+                                     bool stages) {
+  return ric_ws_floats(D, lowmem, stages) + 3 * mpc_vars_floats(D);
 }
 
-// Shared memory per block: each team's stage block, in float32 bytes.
+// Shared memory a block of teams that stage asks for: each team's stage
+// block, in float32 bytes (the same in both modes).
 FB_HD long long solve_smem_bytes(const MpcDims& D) {
-  return 4LL * kK2TeamsPerBlock * ric_layout(D).stage_floats;
+  return 4LL * kK2TeamsPerBlock * ric_layout(D, false).stage_floats;
 }
 FB_HD long long subproblem_smem_bytes(const MpcDims& D) {
-  return 4LL * kK4TeamsPerBlock * ric_layout(D).stage_floats;
+  return 4LL * kK4TeamsPerBlock * ric_layout(D, false).stage_floats;
 }
 
-// One outer iteration of one MPC instance about xk (K4), into xi.
-template <class Tm>
+// One outer iteration of one MPC instance about xk (K4), into xi: ws is
+// laid out by subproblem_ws_floats(D, !Store, Tm::kStages), st is the stage
+// block.
+template <bool Store, class Tm>
 FB_DEV OuterStep fbstab_mpc_subproblem_lane(const Tm& tm, const MpcDims& D,
                                             const SolveOpts& o,
                                             const MpcProb& P, const Vars& xk,
@@ -316,8 +325,8 @@ FB_DEV OuterStep fbstab_mpc_subproblem_lane(const Tm& tm, const MpcDims& D,
   const long long N1 = D.N + 1;
   const long long nz = N1 * (D.nx + D.nu), nl = N1 * D.nx, nv = N1 * D.nc;
   const long long nvar = fb_vars_floats(nz, nl, nv);
-  const Lane its = ws.at(ric_layout(D).stage);
-  const MpcSolveProb<Tm> prob{tm, D, P, ws, st};
+  const Lane its = ws.at(ric_ws_floats(D, !Store, Tm::kStages));
+  const MpcSolveProb<Tm, Store> prob{tm, D, P, ws, st};
   return fb_outer_step(prob, o, xk, xi, fb_vars_at(its, nz, nl, nv),
                        fb_vars_at(its.at(nvar), nz, nl, nv),
                        fb_vars_at(its.at(2 * nvar), nz, nl, nv), itol_prev,
@@ -326,13 +335,13 @@ FB_DEV OuterStep fbstab_mpc_subproblem_lane(const Tm& tm, const MpcDims& D,
 
 // The whole solve of one MPC instance from (z0, l0, v0): Riccati factors
 // in fac, the stage block in st, the five iterates in its.
-template <class Tm>
+template <bool Store, class Tm>
 FB_DEV void fbstab_mpc_solve_lane(const Tm& tm, const MpcDims& D,
                                   const SolveOpts& o, const MpcProb& P,
                                   Lane z0, Lane l0, Lane v0,
                                   const SolveOut& out, Lane fac, Lane st,
                                   Lane its) {
-  const MpcSolveProb<Tm> prob{tm, D, P, fac, st};
+  const MpcSolveProb<Tm, Store> prob{tm, D, P, fac, st};
   fbstab_solve_lane(prob, o, z0, l0, v0, out, its);
 }
 

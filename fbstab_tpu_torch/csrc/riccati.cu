@@ -2,11 +2,17 @@
 //
 // Replaces the Pallas TPU kernel fbstab_tpu/ops/riccati_pallas.py::
 // riccati_newton_step_batched (kernel body _newton_step_kernel ->
-// riccati_factor_solve): PFB weights, barrier-augmented stage Hessians,
-// the forward Riccati matrix recursion with small Choleskys, the forward
-// vector recursion and the backward substitution, giving (dz, dl). The
-// dual recovery (dv, dy) is a wide elementwise pass left to PyTorch, as
-// the JAX wrapper leaves it to XLA.
+// riccati_factor_solve) in both its modes: the storing grid launch and the
+// recompute-factors ("lowmem") launch, riccati_pallas.py:539, which keeps
+// only the carried factors Lc and recomputes each stage's factors in the
+// vector passes (riccati.cuh, bit for bit the storing mode's step). A
+// launch takes lowmem where the caller asks (models/mpc_qp.py::
+// riccati_mode: where the batch's storing scratch would fill more than a
+// quarter of the card's memory). PFB weights, barrier-augmented stage
+// Hessians, the forward Riccati matrix recursion with small Choleskys, the
+// forward vector recursion and the backward substitution, giving (dz, dl).
+// The dual recovery (dv, dy) is a wide elementwise pass left to PyTorch,
+// as the JAX wrapper leaves it to XLA.
 //
 // Design: a team of threads per instance (a thread_block_tile,
 // fbstab_common.cuh), teams filling a one-warp block, on the device code
@@ -72,7 +78,7 @@ struct StepArgs {
   long long ws_floats;  // scratch floats per instance
 };
 
-template <int T, bool S>
+template <int T, bool S, bool Store>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     riccati_step_kernel(MpcDims D, int B, float alpha, float om_alpha,
                         StepArgs a) {
@@ -90,10 +96,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   P.B = lane_im(a.B, D.N * nx * nu, b);
   P.E = lane_im(a.E, N1 * nc * nx, b);
   P.L = lane_im(a.L, N1 * nc * nu, b);
-  const RicLayout rl = ric_layout(D);
+  const RicLayout rl = ric_layout(D, !Store);
   const Lane w = lane_im(a.ws, a.ws_floats, b);
   const Lane st = S ? Lane{smem + t * rl.stage_floats, 1} : w.at(rl.stage);
-  riccati_factor_solve(
+  riccati_factor_solve<Store>(
       tm, D, a.sigma[b], alpha, om_alpha, P, lane_im(a.v, N1 * nc, b),
       lane_im(a.y, N1 * nc, b), lane_im(a.vbar, N1 * nc, b),
       lane_im(a.rz, N1 * (nx + nu), b), lane_im(a.rl, N1 * nx, b),
@@ -103,84 +109,66 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 using StepKernel = void (*)(MpcDims, int, float, float, StepArgs);
 
-// The launch K1 takes at these dims on the current device.
-struct K1Launch {
-  StepKernel kernel;
-  int team;
-  bool stages;
-  long long smem;       // dynamic shared bytes per block
-  long long ws_floats;  // device-memory scratch per instance
-};
+// K1's team at these dims: kTeamSmall threads up to kSmallNx states,
+// kTeamLarge beyond.
+int k1_team(const MpcDims& D) {
+  return D.nx <= kSmallNx ? kTeamSmall : kTeamLarge;
+}
 
-K1Launch k1_launch(const MpcDims& D) {
-  const RicLayout rl = ric_layout(D);
-  const int team = D.nx <= kSmallNx ? kTeamSmall : kTeamLarge;
-  const long long smem = 4LL * (kThreads / team) * rl.stage_floats;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const bool stages = smem <= optin;
-  StepKernel k;
-  if (team == kTeamSmall)
-    k = stages ? &riccati_step_kernel<kTeamSmall, true>
-               : &riccati_step_kernel<kTeamSmall, false>;
-  else
-    k = stages ? &riccati_step_kernel<kTeamLarge, true>
-               : &riccati_step_kernel<kTeamLarge, false>;
-  // Above the default 48 KB a block takes dynamic shared memory only
-  // after it opts in.
-  if (stages && smem > 48 * 1024)
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  return K1Launch{k, team, stages, stages ? smem : 0,
-                  stages ? rl.stage : rl.total};
+template <int T, bool Store>
+Launch<StepKernel> k1_pick(const MpcDims& D, bool lowmem) {
+  return pick_launch(4LL * (kThreads / T) * ric_layout(D, lowmem).stage_floats,
+                     &riccati_step_kernel<T, true, Store>,
+                     &riccati_step_kernel<T, false, Store>,
+                     [&](bool s) { return ric_ws_floats(D, lowmem, s); });
+}
+
+// The launch K1 takes at these dims, in this mode, on the current device.
+Launch<StepKernel> k1_launch(const MpcDims& D, bool lowmem) {
+  if (k1_team(D) == kTeamSmall)
+    return lowmem ? k1_pick<kTeamSmall, false>(D, true)
+                  : k1_pick<kTeamSmall, true>(D, false);
+  return lowmem ? k1_pick<kTeamLarge, false>(D, true)
+                : k1_pick<kTeamLarge, true>(D, false);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of Newton-step scratch per instance for the launch at these dims.
-long long fb_riccati_ws_floats(int N, int nx, int nu, int nc) {
-  return k1_launch(MpcDims{N, nx, nu, nc}).ws_floats;
+// Floats of Newton-step scratch per instance for the launch at these dims
+// in this mode (lowmem: the recompute-factors mode).
+long long fb_riccati_ws_floats(int N, int nx, int nu, int nc, int lowmem) {
+  return k1_launch(MpcDims{N, nx, nu, nc}, lowmem != 0).ws_floats;
 }
 
-// K1's launch shape at these dims, as fb_mpc_solve_info gives K2's:
-// info[0..5] = threads per team, teams per block, registers per thread,
-// local (spill) bytes per thread, shared bytes per block (0: the team
-// does not stage), resident blocks per SM. Returns cudaGetLastError().
-int fb_riccati_info(int N, int nx, int nu, int nc, int* info) {
-  const K1Launch l = k1_launch(MpcDims{N, nx, nu, nc});
-  cudaFuncAttributes fa;
-  cudaFuncGetAttributes(&fa, l.kernel);
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kernel, kThreads,
-                                                (size_t)l.smem);
-  info[0] = l.team;
-  info[1] = kThreads / l.team;
-  info[2] = fa.numRegs;
-  info[3] = (int)fa.localSizeBytes;
-  info[4] = (int)l.smem;
-  info[5] = blocks;
-  return (int)cudaGetLastError();
+// K1's launch shape at these dims in this mode, as fb_mpc_solve_info gives
+// K2's: info[0..5] = threads per team, teams per block, registers per
+// thread, local (spill) bytes per thread, shared bytes per block (0: the
+// team does not stage), resident blocks per SM. Returns
+// cudaGetLastError().
+int fb_riccati_info(int N, int nx, int nu, int nc, int lowmem, int* info) {
+  const MpcDims D{N, nx, nu, nc};
+  return launch_info(k1_launch(D, lowmem != 0), k1_team(D), kThreads, info);
 }
 
-// Launches K1 on `stream`. Every array is instance-major (B, floats per
+// Launches K1 on `stream` in the storing mode or (lowmem) the
+// recompute-factors mode. Every array is instance-major (B, floats per
 // instance), sigma is (B,), ws is (B, fb_riccati_ws_floats). Returns
 // cudaGetLastError().
-int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
-                    float om_alpha, const float* sigma, const float* Q,
-                    const float* R, const float* S, const float* A,
-                    const float* Bm, const float* E, const float* L,
-                    const float* v, const float* y, const float* vbar,
-                    const float* rz, const float* rl, const float* rv,
-                    float* dz, float* dl, float* ws, void* stream) {
+int fb_riccati_step(int N, int nx, int nu, int nc, int B, int lowmem,
+                    float alpha, float om_alpha, const float* sigma,
+                    const float* Q, const float* R, const float* S,
+                    const float* A, const float* Bm, const float* E,
+                    const float* L, const float* v, const float* y,
+                    const float* vbar, const float* rz, const float* rl,
+                    const float* rv, float* dz, float* dl, float* ws,
+                    void* stream) {
   const MpcDims D{N, nx, nu, nc};
-  const K1Launch l = k1_launch(D);
+  const Launch<StepKernel> l = k1_launch(D, lowmem != 0);
   const StepArgs a{sigma, Q, R, S, A, Bm, E, L, v, y, vbar, rz, rl, rv,
                    dz, dl, ws, l.ws_floats};
-  const int teams = kThreads / l.team;
+  const int teams = kThreads / k1_team(D);
   const int blocks = (B + teams - 1) / teams;
   const StepKernel k = l.kernel;
   k<<<blocks, kThreads, (size_t)l.smem, (cudaStream_t)stream>>>(

@@ -25,20 +25,32 @@
 // passes) into its stage block in one coalesced sweep, computes the
 // stage's factors there and writes them to device memory in one sweep, so
 // the dependent chains of the solves wait on shared memory, not on device
-// memory. A team that does not stage (K1 at stages too large for a block's
-// shared memory, and the team of one) reads and writes everything in
-// place, its stage block in its device-memory scratch.
+// memory. A team that does not stage (a kernel at stages too large for a
+// block's shared memory, and the team of one) reads and writes everything
+// in place, its stage block in its device-memory scratch.
+//
+// Two modes, a compile-time parameter `Store` (riccati_pallas.py::
+// riccati_factor_solve's store_factors and store_AP): the storing mode
+// keeps every stage's M, SM, SG, AM and P in the scratch for the vector
+// passes; the recompute-factors ("lowmem") mode keeps only the carried
+// factors Lc and recomputes stage i's M, SM, SG, AM and P from Lc[i] in
+// the stage block before each vector pass uses them, with the forward
+// pass's own code on the same inputs, so the step is bit for bit the
+// storing mode's. It trades about twice the factor work for
+// N1 (nx^2 + nu nx + nu^2) + N (nx^2 + nx nu) floats of scratch.
 #pragma once
 
 #include "fbstab_common.cuh"
 
 // Offsets (in floats per instance) of the Newton-step scratch: the stage
-// factors and vectors, then the stage block, whose offsets Qh ... P count
-// from its start: the current stage's Hessians, T, the weights' ratio
-// gamma ./ mus, four vector temporaries, and the staged operands (E, L, the
-// carried factor Lf and the next one Ln, M, SM, SG, AM, P). A team that
-// stages keeps the stage block in shared memory; one that does not, in its
-// scratch at `stage`.
+// factors (Lc, and in the storing mode M, SM, SG, AM, P) and vectors, then
+// the stage block, whose offsets Qh ... P count from its start: the current
+// stage's Hessians, T, the weights' ratio gamma ./ mus, four vector
+// temporaries, and the staged operands (E, L, the carried factor Lf and the
+// next one Ln, M, SM, SG, AM, P). A team that stages keeps the stage block
+// in shared memory; one that does not, in its scratch at `stage`. The
+// recompute-factors layout (lowmem) has no M ... P in the scratch (their
+// offsets are 0 and never read): each stage's lie in the stage block.
 struct RicLayout {
   int Lc, M, SM, SG, AM, P, th, h, gam, mus, r1, stage;
   int Qh, Rh, Sh, T, gr, v0, v1, v2, v3;
@@ -46,17 +58,20 @@ struct RicLayout {
   int total;
 };
 
-FB_HD RicLayout ric_layout(const MpcDims& D) {
+FB_HD RicLayout ric_layout(const MpcDims& D, bool lowmem) {
   int N1 = D.N + 1, nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
   int nmax = nx > nu ? nx : nu;
   RicLayout w;
   int o = 0;
   w.Lc = o; o += N1 * nx * nx;
-  w.M = o;  o += N1 * nx * nx;
-  w.SM = o; o += N1 * nu * nx;
-  w.SG = o; o += N1 * nu * nu;
-  w.AM = o; o += D.N * nx * nx;
-  w.P = o;  o += D.N * nx * nu;
+  w.M = w.SM = w.SG = w.AM = w.P = 0;
+  if (!lowmem) {
+    w.M = o;  o += N1 * nx * nx;
+    w.SM = o; o += N1 * nu * nx;
+    w.SG = o; o += N1 * nu * nu;
+    w.AM = o; o += D.N * nx * nx;
+    w.P = o;  o += D.N * nx * nu;
+  }
   w.th = o; o += N1 * nx;
   w.h = o;  o += N1 * nx;
   w.gam = o; o += N1 * nc;
@@ -87,17 +102,28 @@ FB_HD RicLayout ric_layout(const MpcDims& D) {
   return w;
 }
 
+// Floats of Newton-step scratch per instance in device memory: the factors
+// and vectors, and the stage block too for a team that does not stage.
+FB_HD long long ric_ws_floats(const MpcDims& D, bool lowmem, bool stages) {
+  const RicLayout o = ric_layout(D, lowmem);
+  return stages ? o.stage : o.total;
+}
+
 // The working views of one stage's factors: in the stage block for a team
-// that stages, in the scratch at stage i otherwise.
+// that stages and in the recompute-factors mode, in the scratch at stage i
+// otherwise.
 struct StageFactors {
   Lane M, SM, SG, AM, P;
 };
 
-template <class Tm>
+template <bool Store, class Tm>
 FB_DEV StageFactors ric_factors_at(const Tm& tm, const MpcDims& D,
                                    const RicLayout& o, Lane w, Lane st,
                                    int i) {
   const long long nx = D.nx, nu = D.nu;
+  if (!Store)
+    return StageFactors{st.at(o.sM), st.at(o.sSM), st.at(o.sSG),
+                        st.at(o.sAM), st.at(o.sP)};
   return StageFactors{
       fb_work(tm, st.at(o.sM), w.at(o.M + i * nx * nx)),
       fb_work(tm, st.at(o.sSM), w.at(o.SM + i * nu * nx)),
@@ -106,28 +132,32 @@ FB_DEV StageFactors ric_factors_at(const Tm& tm, const MpcDims& D,
       fb_work(tm, st.at(o.sP), w.at(o.P + i * nx * nu))};
 }
 
-// Stage i's factors (M, SM, SG and, before the last stage, AM and P) and
-// the factor Lc at stage `j` into the stage block (Lc at sLf), for a team
-// that stages; visible after the caller's next sync.
-template <class Tm>
+// Stage i's stored factors (M, SM, SG and, before the last stage, AM and
+// P; none in the recompute-factors mode, which has them in the stage block
+// already) and the factor Lc at stage `j` into the stage block (Lc at sLf),
+// for a team that stages; visible after the caller's next sync.
+template <bool Store, class Tm>
 FB_DEV void ric_stage_in(const Tm& tm, const MpcDims& D, const RicLayout& o,
                          Lane w, Lane st, int i, int j) {
   const long long nx = D.nx, nu = D.nu;
-  fb_stage_in(tm, st.at(o.sM), w.at(o.M + i * nx * nx), nx * nx);
-  fb_stage_in(tm, st.at(o.sSM), w.at(o.SM + i * nu * nx), nu * nx);
-  fb_stage_in(tm, st.at(o.sSG), w.at(o.SG + i * nu * nu), nu * nu);
-  if (i < D.N) {
-    fb_stage_in(tm, st.at(o.sAM), w.at(o.AM + i * nx * nx), nx * nx);
-    fb_stage_in(tm, st.at(o.sP), w.at(o.P + i * nx * nu), nx * nu);
+  if (Store) {
+    fb_stage_in(tm, st.at(o.sM), w.at(o.M + i * nx * nx), nx * nx);
+    fb_stage_in(tm, st.at(o.sSM), w.at(o.SM + i * nu * nx), nu * nx);
+    fb_stage_in(tm, st.at(o.sSG), w.at(o.SG + i * nu * nu), nu * nu);
+    if (i < D.N) {
+      fb_stage_in(tm, st.at(o.sAM), w.at(o.AM + i * nx * nx), nx * nx);
+      fb_stage_in(tm, st.at(o.sP), w.at(o.P + i * nx * nu), nx * nu);
+    }
   }
   fb_stage_in(tm, st.at(o.sLf), w.at(o.Lc + j * nx * nx), nx * nx);
 }
 
 // Stage i's factors from the stage block to the scratch (the last stage
-// has no AM, P).
-template <class Tm>
+// has no AM, P); nothing in the recompute-factors mode.
+template <bool Store, class Tm>
 FB_DEV void ric_stage_out(const Tm& tm, const MpcDims& D, const RicLayout& o,
                           Lane w, Lane st, int i) {
+  if (!Store) return;
   const long long nx = D.nx, nu = D.nu;
   fb_stage_out(tm, w.at(o.M + i * nx * nx), st.at(o.sM), nx * nx);
   fb_stage_out(tm, w.at(o.SM + i * nu * nx), st.at(o.sSM), nu * nx);
@@ -207,6 +237,41 @@ FB_DEV void ric_stage_factor(const Tm& tm, const MpcDims& D,
   fb_chol(tm, F.SG, nu);
 }
 
+// AM = A inv(M)', then P = (AM SM' - B) inv(SG)' of stage i < N into F,
+// a row per thread.
+template <class Tm>
+FB_DEV void ric_stage_AP(const Tm& tm, const MpcDims& D, const MpcProb& P,
+                         int i, const StageFactors& F) {
+  const int nx = D.nx, nu = D.nu, T = tm.size();
+  Lane A = P.A.at((long long)i * nx * nx),
+       Bm = P.B.at((long long)i * nx * nu);
+  for (int r = tm.rank(); r < nx; r += T) {
+    for (int k = 0; k < nx; ++k) F.AM[r * nx + k] = A[r * nx + k];
+    fb_trsv_lower(Solo{}, F.M, nx, F.AM.at(r * nx));
+    for (int c = 0; c < nu; ++c) {
+      float s = 0.0f;
+      for (int k = 0; k < nx; ++k) s += F.AM[r * nx + k] * F.SM[c * nx + k];
+      F.P[r * nu + c] = s - Bm[r * nu + c];
+    }
+    fb_trsv_lower(Solo{}, F.SG, nu, F.P.at(r * nu));
+  }
+  tm.sync();
+}
+
+// The recompute-factors mode's stage i: M, SM, SG (and AM, P before the
+// last stage) into the stage block from the stored Lc[i] (staged at sLn),
+// by the forward pass's own code, so bit for bit its values.
+template <class Tm>
+FB_DEV void ric_recompute(const Tm& tm, const MpcDims& D, const MpcProb& P,
+                          const RicLayout& o, Lane w, Lane st, float sigma,
+                          int i, const StageFactors& F) {
+  const long long xx = (long long)D.nx * D.nx;
+  const Lane Lf = fb_stage_in(tm, st.at(o.sLn), w.at(o.Lc + i * xx), xx);
+  tm.sync();
+  ric_stage_factor(tm, D, P, o, w, st, sigma, i, Lf, F);
+  if (i < D.N) ric_stage_AP(tm, D, P, i, F);
+}
+
 // r1(i) = rz(i) - [E(i); L(i)]' (rv(i) ./ mus(i)) for every stage
 // (riccati_linear_solver.cc:230-235), stage-major (N+1, nx+nu).
 template <class Tm>
@@ -236,12 +301,13 @@ FB_DEV void ric_r1(const Tm& tm, const MpcDims& D, const MpcProb& P,
 //   v, y, vbar (N+1, nc): the iterate pieces;
 //   rz (N+1, nx+nu), rl (N+1, nx), rv (N+1, nc): the NEGATED inner
 //   residual; dz (N+1, nx+nu), dl (N+1, nx): outputs;
-//   w: scratch laid out by ric_layout; st: the stage block. After the call
-//   w.gam / w.mus hold the PFB weights (the dual recovery dv, dy uses
-//   them). Vector element j belongs to thread j % size throughout the
-//   vector recursions (the ownership of fb_trsv_lower), so a thread's
-//   writes there feed its own triangular solves without a sync.
-template <class Tm>
+//   w: scratch laid out by ric_layout(D, !Store); st: the stage block.
+//   After the call w.gam / w.mus hold the PFB weights (the dual recovery
+//   dv, dy uses them). Vector element j belongs to thread j % size
+//   throughout the vector recursions (the ownership of fb_trsv_lower), so a
+//   thread's writes there feed its own triangular solves without a sync.
+//   Store: the storing mode (true) or the recompute-factors mode.
+template <bool Store, class Tm>
 FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
                                  float alpha, float om_alpha,
                                  const MpcProb& P, Lane v, Lane y, Lane vbar,
@@ -249,7 +315,7 @@ FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
                                  Lane w, Lane st) {
   const int N = D.N, nx = D.nx, nu = D.nu, nc = D.nc, ns = nx + nu;
   const int T = tm.size(), me = tm.rank();
-  const RicLayout o = ric_layout(D);
+  const RicLayout o = ric_layout(D, !Store);
   const long long xx = (long long)nx * nx;
 
   for (int k = me; k < (N + 1) * nc; k += T) {
@@ -273,21 +339,9 @@ FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
   }
   tm.sync();
   for (int i = 0; i < N; ++i) {
-    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
+    const StageFactors F = ric_factors_at<Store>(tm, D, o, w, st, i);
     ric_stage_factor(tm, D, P, o, w, st, sigma, i, Lf, F);
-    Lane A = P.A.at(i * xx), Bm = P.B.at((long long)i * nx * nu);
-    // Row r: AM = A inv(M)', then P = (AM SM' - B) inv(SG)'.
-    for (int r = me; r < nx; r += T) {
-      for (int k = 0; k < nx; ++k) F.AM[r * nx + k] = A[r * nx + k];
-      fb_trsv_lower(Solo{}, F.M, nx, F.AM.at(r * nx));
-      for (int c = 0; c < nu; ++c) {
-        float s = 0.0f;
-        for (int k = 0; k < nx; ++k) s += F.AM[r * nx + k] * F.SM[c * nx + k];
-        F.P[r * nu + c] = s - Bm[r * nu + c];
-      }
-      fb_trsv_lower(Solo{}, F.SG, nu, F.P.at(r * nu));
-    }
-    tm.sync();
+    ric_stage_AP(tm, D, P, i, F);
     // L(i+1) = chol(sigma I + P P' + AM AM') (its lower triangle).
     Lane Ln = fb_work(tm, Lnb, w.at(o.Lc + (i + 1) * xx));
     for (int t = me; t < nx * nx; t += T) {
@@ -300,14 +354,17 @@ FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
     }
     tm.sync();
     fb_chol(tm, Ln, nx);
-    ric_stage_out(tm, D, o, w, st, i);
+    ric_stage_out<Store>(tm, D, o, w, st, i);
     fb_stage_out(tm, w.at(o.Lc + (i + 1) * xx), Ln, nx * nx);
     Lnb = Lf;
     Lf = Ln;
   }
   ric_stage_factor(tm, D, P, o, w, st, sigma, N, Lf,
-                   ric_factors_at(tm, D, o, w, st, N));
-  ric_stage_out(tm, D, o, w, st, N);
+                   ric_factors_at<Store>(tm, D, o, w, st, N));
+  ric_stage_out<Store>(tm, D, o, w, st, N);
+  // The recompute-factors mode's vector passes stage Lc[i] at sLn, which
+  // the last forward stage may still be reading.
+  if (!Store) tm.sync();
 
   // ---- Forward vector recursion (cc:239-262). ----
   ric_r1(tm, D, P, o, w, rz, rv);
@@ -322,8 +379,9 @@ FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
   fb_cho_solve(tm, Lf, nx, h);
   for (int j = me; j < nx; j += T) h[j] = h[j] - r1[j];
   for (int i = 0; i < N; ++i) {
-    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
-    ric_stage_in(tm, D, o, w, st, i, i + 1);
+    const StageFactors F = ric_factors_at<Store>(tm, D, o, w, st, i);
+    if (!Store) ric_recompute(tm, D, P, o, w, st, sigma, i, F);
+    ric_stage_in<Store>(tm, D, o, w, st, i, i + 1);
     Lf = fb_work(tm, st.at(o.sLf), w.at(o.Lc + (i + 1) * xx));
     for (int j = me; j < nx; j += T) tx[j] = h[i * nx + j];
     tm.sync();
@@ -351,8 +409,9 @@ FB_DEV void riccati_factor_solve(const Tm& tm, const MpcDims& D, float sigma,
   // ---- Backward recursion (cc:266-327). ----
   Lane t2 = st.at(o.v2), t3 = st.at(o.v3);
   for (int i = N; i >= 0; --i) {
-    const StageFactors F = ric_factors_at(tm, D, o, w, st, i);
-    ric_stage_in(tm, D, o, w, st, i, i);
+    const StageFactors F = ric_factors_at<Store>(tm, D, o, w, st, i);
+    if (!Store) ric_recompute(tm, D, P, o, w, st, sigma, i, F);
+    ric_stage_in<Store>(tm, D, o, w, st, i, i);
     Lf = fb_work(tm, st.at(o.sLf), w.at(o.Lc + i * xx));
     Lane xi = dz.at((long long)i * ns), ui = dz.at((long long)i * ns + nx);
     Lane li = dl.at((long long)i * nx);

@@ -388,51 +388,167 @@ def _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha):
 
 # ------------------------------------------------------------------
 # Kernel dispatch. Every float32 batch on the card takes K1 as its Newton
-# step. Tier 1, the fused solver K2, takes float32 batches on the card
-# within SOLVE_DIMS_CAP; tier 2, the host outer loop on the per-subproblem
-# kernel K4 (models/mpc_subfused.py), takes those beyond it within
-# SUBPROBLEM_DIMS_CAP. The kernels size everything at run time (scratch
-# in device memory, a few KB of shared memory per block), so the caps are
-# not resource limits: each is the envelope of the shapes its kernel was
-# held against its plain version at on an H100. K2: the headline (N=30
-# nx=8 nu=3 nc=6)
-# and the three small audited plants (up to N=40 nx=6 nc=12). K4: the
-# copolymerization reactor (N=80 nx=18 nu=5 nc=10). Larger shapes run
-# tier 3, the lockstep solver with K1 as the Newton step.
+# step. Tier 1 is the fused solver K2, tier 2 the host outer loop on the
+# per-subproblem kernel K4 (models/mpc_subfused.py), tier 3 the lockstep
+# solver with K1 as the Newton step. The tiers follow the shape classes the
+# JAX package runs its fused kernels on (a copy of its gate arithmetic
+# below): K2 where its `_fused_solve_eligible` gives a mode, K4 where its
+# `_subfused_eligible` does, tier 3 only where it runs its scan. Inside the
+# two boxes SOLVE_DIMS_CAP and SUBPROBLEM_DIMS_CAP, the shapes each kernel
+# was first held against its plain version at on an H100 (K2: the headline
+# N=30 nx=8 nu=3 nc=6 and the three small audited plants, up to N=40 nx=6
+# nc=12; K4: the copolymerization reactor N=80 nx=18 nu=5 nc=10), a batch
+# keeps the tier it took there, where the JAX package would choose the
+# other kernel.
+#
+# What the card's resources decide is not the tier but how a kernel runs:
+# a block of K2 or K4 stages each team's stage block in shared memory where
+# the block can hold it (opting in to more than 48 KB), and its teams work
+# in place otherwise (csrc/mpc_solve.cu, csrc/mpc_subproblem.cu); and a
+# launch of K1, K2 or K4 takes the recompute-factors mode where the batch's
+# storing scratch would fill more than a quarter of the card's memory
+# (riccati_mode). A launch whose scratch the card cannot give raises
+# KernelResourceError; nothing falls back to another tier.
 # ------------------------------------------------------------------
 
 SOLVE_DIMS_CAP = dict(N=40, nx=8, nu=3, nc=12)
 SUBPROBLEM_DIMS_CAP = dict(N=80, nx=18, nu=5, nc=10)
+
+# The JAX package's shape classes (fbstab_tpu/models/mpc_qp.py:476-535,
+# :814-872), copied: the per-tile VMEM model of its Pallas kernels and its
+# caps. Here they name the shapes the reference runs a fused kernel on;
+# they model no resource of the card.
+_VMEM_STD_BUDGET_MB = 64.0
+_VMEM_LOWMEM_BUDGET_MB = 90.0
+_DIMS_CAP = dict(nx=32, nu=24, nc=48, N=160)
+_FULL_SOLVE_ROWS_CAP = 1024
+_SUBFUSED_SPILL_FACTOR = 1.4
+_SUBFUSED_BUDGET_MB = 112.0
+
+
+def _state_rows(N, nx, nu, nc) -> int:
+    return (N + 1) * (2 * nx + nu + 2 * nc)
+
+
+def _fused_vmem_mb(N, nx, nu, nc, tile_b=128, lowmem=False) -> float:
+    """The JAX package's working-set model (MB) of its fused kernels per
+    tile of 128 lanes."""
+    N1, b = N + 1, 4 * max(tile_b, 128) / 1e6
+    mats = (N1 * nx * nx + N1 * nu * nu + N1 * nu * nx + N * nx * nx
+            + N * nx * nu + N1 * nc * nx + N1 * nc * nu)
+    vecs_in = N1 * nx + N1 * nu + N * nx + nx + N1 * nc
+    guesses = N1 * (2 * nx + nu + nc)
+    outs = N1 * (nx + nu) + N1 * nx + 2 * N1 * nc + 5
+    scr_vec = (3 * N1 * nx + N1 * nu + 4 * N1 * nc
+               + N1 * nx + N1 * nu + 2 * N1 * nx + 1)
+    scr_mat = N1 * nx * nx
+    if not lowmem:
+        scr_mat += N1 * nx * nx + N1 * nu * nx + N1 * nu * nu
+    return b * (mats + vecs_in + guesses + outs + scr_vec + scr_mat)
+
+
+def _kernel_mode(N, nx, nu, nc):
+    """'std' | 'lowmem' | None: the JAX package's fused-kernel variant."""
+    if not (nx <= _DIMS_CAP["nx"] and nu <= _DIMS_CAP["nu"]
+            and nc <= _DIMS_CAP["nc"] and N <= _DIMS_CAP["N"]):
+        return None
+    if _fused_vmem_mb(N, nx, nu, nc) <= _VMEM_STD_BUDGET_MB:
+        return "std"
+    if _fused_vmem_mb(N, nx, nu, nc, lowmem=True) <= _VMEM_LOWMEM_BUDGET_MB:
+        return "lowmem"
+    return None
+
+
+def fused_solve_mode(dims):
+    """The JAX package's `_fused_solve_eligible` on shapes alone: its
+    kernel mode where it runs the full-solve kernel (K2), else None."""
+    if _state_rows(*dims) > _FULL_SOLVE_ROWS_CAP:
+        return None
+    return _kernel_mode(*dims)
+
+
+def subfused_mode(dims):
+    """The JAX package's `_subfused_eligible` on shapes alone: its kernel
+    mode where it runs the per-subproblem kernel (K4), else None."""
+    if _state_rows(*dims) <= _FULL_SOLVE_ROWS_CAP:
+        return None
+    mode = _kernel_mode(*dims)
+    if mode is None:
+        return None
+    mb = _fused_vmem_mb(*dims, lowmem=(mode == "lowmem"))
+    return None if mb * _SUBFUSED_SPILL_FACTOR > _SUBFUSED_BUDGET_MB else mode
 
 
 def _cuda_f32(t: torch.Tensor) -> bool:
     return t.is_cuda and t.dtype == torch.float32
 
 
+def _in_box(dims, cap) -> bool:
+    return all(d <= cap[k] for k, d in zip(("N", "nx", "nu", "nc"), dims))
+
+
 def mpc_solve_tier(dims, dtype, device) -> int:
     """The tier `solve_mpc_qp_batch` sends a batch of stage dims (N, nx,
     nu, nc) in `dtype` on `device` to with riccati="scan": 1 (K2), 2 (the
-    host outer loop on K4) or 3 (the lockstep solver)."""
-    N, nx, nu, nc = dims
+    host outer loop on K4) or 3 (the lockstep solver). Float32 batches on
+    the card: the box's tier inside SOLVE_DIMS_CAP or SUBPROBLEM_DIMS_CAP,
+    else K2 where the JAX package runs its full-solve kernel, K4 where it
+    runs its per-subproblem kernel, tier 3 where it runs its scan."""
+    dims = tuple(dims)
     if torch.device(device).type != "cuda" or dtype != torch.float32:
         return 3
     for tier, cap in ((1, SOLVE_DIMS_CAP), (2, SUBPROBLEM_DIMS_CAP)):
-        if (N <= cap["N"] and nx <= cap["nx"] and nu <= cap["nu"]
-                and nc <= cap["nc"]):
+        if _in_box(dims, cap):
             return tier
+    if fused_solve_mode(dims) is not None:
+        return 1
+    if subfused_mode(dims) is not None:
+        return 2
     return 3
+
+
+# The share of the card's memory beyond which the storing scratch of a
+# batch sends K1, K2 and K4 to the recompute-factors mode.
+LOWMEM_MEMORY_SHARE = 0.25
+
+
+def riccati_mode(dims, B, device, total_memory=None,
+                 store_floats=None) -> str:
+    """'std' or 'lowmem': the mode a launch of K1, K2 or K4 takes for a
+    batch of B instances of stage dims (N, nx, nu, nc) on `device`.
+    lowmem (the recompute-factors Riccati, bit for bit the storing one)
+    where the batch's storing scratch, B * store_floats * 4 bytes, exceeds
+    LOWMEM_MEMORY_SHARE of the card's memory. By default `total_memory` is
+    the device's own and `store_floats` K1's storing scratch per instance
+    as the kernel library sizes it (fb_riccati_ws_floats).
+
+    This departs from the JAX package's `_kernel_mode`, which picks lowmem
+    from a model of a tile's VMEM on the TPU, a budget the card does not
+    have: there what runs out is the card's memory, and the batch, not the
+    tile, fills it. Off the card there is no kernel and the mode is std."""
+    if total_memory is None:
+        from fbstab_tpu_torch.ops._build import device_memory_bytes
+        total_memory = device_memory_bytes(torch.device(device))
+        if total_memory is None:
+            return "std"
+    if store_floats is None:
+        from fbstab_tpu_torch.ops._build import load_library
+        store_floats = load_library().fb_riccati_ws_floats(*dims, 0)
+    need = B * store_floats * 4
+    return "lowmem" if need > LOWMEM_MEMORY_SHARE * total_memory else "std"
 
 
 def mpc_newton_step(d, v, y, vbar, rz, rl, rv, sigma, alpha):
     """The Newton-step dispatch (`_make_fused_step` in the JAX package):
-    the CUDA kernel K1 for float32 batches on the card, with ok = finite
-    (dz, dl); the plain recursion everywhere else, with ok = finite factor
-    diagonals. Returns (dz, dl, dv, dy, ok)."""
+    the CUDA kernel K1 for float32 batches on the card, in the mode of
+    riccati_mode, with ok = finite (dz, dl); the plain recursion everywhere
+    else, with ok = finite factor diagonals. Returns (dz, dl, dv, dy, ok)."""
     if _cuda_f32(v):
         from fbstab_tpu_torch.ops.riccati_cuda import (
             riccati_newton_step_batched)
+        lowmem = riccati_mode(mpc_dims(d), v.shape[0], v.device) == "lowmem"
         dz, dl, dv, dy = riccati_newton_step_batched(
-            d, v, y, vbar, rz, rl, rv, sigma, alpha)
+            d, v, y, vbar, rz, rl, rv, sigma, alpha, lowmem=lowmem)
         ok = torch.isfinite(dz).all(1) & torch.isfinite(dl).all(1)
         return dz, dl, dv, dy, ok
     return _fused_step_impl(d, v, y, vbar, rz, rl, rv, sigma, alpha)
@@ -592,20 +708,26 @@ def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options,
     """riccati="scan" runs the tier of mpc_solve_tier: 1, the fused CUDA
     solver (K2); 2, the host outer loop on the per-subproblem kernel (K4);
     3, the batched lockstep solver, whose Newton step is K1 on the card in
-    float32 and the plain recursion elsewhere. riccati="assoc" runs the
+    float32 and the plain recursion elsewhere; each kernel in the mode of
+    riccati_mode. riccati="assoc" runs the
     lockstep solver on the associative Riccati step (K5 on the card)."""
     if riccati == "assoc":
         exact_f32_matmul(z0)
         return fbstab_solve_batch(MPC_OPS_ASSOC, data, z0, l0, v0, options)
-    tier = mpc_solve_tier(mpc_dims(data), z0.dtype, z0.device)
+    dims = mpc_dims(data)
+    tier = mpc_solve_tier(dims, z0.dtype, z0.device)
+    lowmem = tier < 3 and riccati_mode(dims, z0.shape[0],
+                                       z0.device) == "lowmem"
     if tier == 1:
         from fbstab_tpu_torch.ops.mpc_solve_cuda import (
             fbstab_mpc_solve_fused)
-        return fbstab_mpc_solve_fused(data, z0, l0, v0, options)
+        return fbstab_mpc_solve_fused(data, z0, l0, v0, options,
+                                      lowmem=lowmem)
     if tier == 2:
         from fbstab_tpu_torch.models.mpc_subfused import (
             fbstab_mpc_solve_subfused)
-        return fbstab_mpc_solve_subfused(data, z0, l0, v0, options)
+        return fbstab_mpc_solve_subfused(data, z0, l0, v0, options,
+                                         lowmem=lowmem)
     exact_f32_matmul(z0)
     return fbstab_solve_batch(MPC_OPS, data, z0, l0, v0, options)
 

@@ -29,12 +29,13 @@ from fbstab_tpu_torch.solver_out import ExitFlag
 
 
 def fbstab_mpc_solve_subfused(data, z0, l0, v0, options: Options,
-                              subproblem=None):
+                              subproblem=None, lowmem: bool = False):
     """Batched MPC solve from (z0, l0, v0), (B, ...) batch-first in and
     out, with the contract of `fbstab_solve_batch`. `subproblem` is one
     outer iteration with the signature of
     ops.mpc_subproblem_cuda.mpc_subproblem_fused (the default, K4 on CUDA
-    and its plain version on the CPU)."""
+    and its plain version on the CPU); `lowmem` (the JAX signature's) runs
+    every launch in K4's recompute-factors mode."""
     from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, exact_f32_matmul
     from fbstab_tpu_torch.ops.mpc_subproblem_cuda import (
         mpc_subproblem_fused, prep_subfused_data)
@@ -63,7 +64,7 @@ def fbstab_mpc_solve_subfused(data, z0, l0, v0, options: Options,
     eflag = flag(ExitFlag.MAXITERATIONS)
     out_x, out_res = xk, E0
     # Loop-invariant kernel layout, built once.
-    prep = prep_subfused_data(data)
+    prep = prep_subfused_data(data, lowmem)
 
     for _ in range(opts.max_prox_iters):
         lane = ~done

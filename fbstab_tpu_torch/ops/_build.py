@@ -143,26 +143,27 @@ def _compile(out: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fb_riccati_ws_floats.argtypes = [I, I, I, I]
-    lib.fb_riccati_ws_floats.restype = ctypes.c_longlong
-    lib.fb_riccati_step.argtypes = [I, I, I, I, I, F, F] + [P] * 17 + [P]
+    # K1, K2 and K4 take (N, nx, nu, nc[, B], lowmem, ...).
+    for fn in (lib.fb_riccati_ws_floats, lib.fb_solve_ws_floats,
+               lib.fb_subproblem_ws_floats):
+        fn.argtypes = [I] * 5
+        fn.restype = ctypes.c_longlong
+    lib.fb_riccati_step.argtypes = [I] * 6 + [F, F] + [P] * 17 + [P]
     lib.fb_riccati_step.restype = I
-    for fn in (lib.fb_solve_ws_floats, lib.fb_solve_smem_bytes,
-               lib.fb_subproblem_ws_floats, lib.fb_subproblem_smem_bytes):
+    for fn in (lib.fb_solve_smem_bytes, lib.fb_subproblem_smem_bytes):
         fn.argtypes = [I, I, I, I]
         fn.restype = ctypes.c_longlong
-    lib.fb_mpc_solve.argtypes = [I, I, I, I, I, SolveOpts] + [P] * 25 + [P]
+    lib.fb_mpc_solve.argtypes = [I] * 6 + [SolveOpts] + [P] * 25 + [P]
     lib.fb_mpc_solve.restype = I
     lib.fb_dense_ws_floats.argtypes = [I, I, I]
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I, I, I, I, SolveOpts] + [P] * 19 + [P]
     lib.fb_dense_solve.restype = I
-    lib.fb_mpc_subproblem.argtypes = ([I, I, I, I, I, SolveOpts] + [P] * 32
-                                      + [P])
+    lib.fb_mpc_subproblem.argtypes = [I] * 6 + [SolveOpts] + [P] * 32 + [P]
     lib.fb_mpc_subproblem.restype = I
     for fn in (lib.fb_mpc_solve_info, lib.fb_mpc_subproblem_info,
                lib.fb_riccati_info):
-        fn.argtypes = [I, I, I, I, P]
+        fn.argtypes = [I] * 5 + [P]
         fn.restype = I
     lib.fb_combine_info.argtypes = [I, P]
     lib.fb_combine_info.restype = I
@@ -190,8 +191,9 @@ MXU_INFO_FIELDS = INFO_FIELDS + ("rows", "lanes", "blocks")
 def kernel_info(fn, *dims, fields=INFO_FIELDS) -> dict:
     """A kernel's launch shape at these dims, from its C info function
     (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
-    `lib.fb_riccati_info` at (N, nx, nu, nc), `lib.fb_dense_solve_info` at
-    (n, q, nl), `lib.fb_combine_info` at n; `lib.fb_mxu_probe_info` at
+    `lib.fb_riccati_info` at (N, nx, nu, nc, lowmem),
+    `lib.fb_dense_solve_info` at (n, q, nl), `lib.fb_combine_info` at n;
+    `lib.fb_mxu_probe_info` at
     (form, n, N1, B) with fields=MXU_INFO_FIELDS)."""
     info = (ctypes.c_int * len(fields))()
     check(fn(*dims, info), "kernel info")
@@ -246,3 +248,41 @@ def check(err: int, what: str) -> None:
     """Raises when a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+class KernelResourceError(RuntimeError):
+    """A kernel launch whose device-memory scratch the card cannot give,
+    raised before anything is allocated; nothing falls back. (Shared
+    memory a launch can always have: the kernels work in place where a
+    block cannot hold their stage blocks.)"""
+
+
+@functools.lru_cache(maxsize=None)
+def _memory_of(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).total_memory
+
+
+def device_memory_bytes(device):
+    """The memory of a CUDA `device` in bytes, cached: asking CUDA for the
+    free memory (cudaMemGetInfo) at each launch cost K1 0.8-1.1 ms a launch
+    at the headline on an H100 80GB HBM3 at 700 W (tools/ab_mpc.py, in
+    turns); None off the card."""
+    if device.type != "cuda":
+        return None
+    import torch
+    index = device.index
+    return _memory_of(torch.cuda.current_device() if index is None else index)
+
+
+def check_scratch(what: str, B: int, ws_floats: int, device) -> None:
+    """Raises KernelResourceError before a launch of `what` whose
+    scratch, B instances of ws_floats float32 each, is more than the
+    card's memory; a smaller one that does not fit beside what is already
+    allocated raises torch's OutOfMemoryError when it is allocated."""
+    memory = device_memory_bytes(device)
+    need = 4 * B * ws_floats
+    if memory is not None and need > memory:
+        raise KernelResourceError(
+            f"{what} needs {need} bytes of device-memory scratch for "
+            f"{B} instances, beyond the {memory} bytes of {device}")

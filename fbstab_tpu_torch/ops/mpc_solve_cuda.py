@@ -1,16 +1,22 @@
 """K2, the fused FBstab MPC solver, as a CUDA kernel (csrc/mpc_solve.cu).
 
 Counterpart of `fbstab_tpu/ops/mpc_solve_pallas.py::fbstab_mpc_solve_fused`
-in its standard mode: one launch runs the whole algorithm (outer proximal
+in its modes: one launch runs the whole algorithm (outer proximal
 loop, inner Newton loop on the shared Riccati device function,
 nonmonotone linesearch, infeasibility checks, exit flags) for every
 instance, a team of threads per instance, on the batch-first
-(instance-major) tensors as torch holds them.
+(instance-major) tensors as torch holds them. `lowmem=True` launches the
+recompute-factors kernel (the JAX package's serial lowmem launch,
+mpc_solve_pallas.py:1191), whose Newton steps are bit for bit the standard
+kernel's; the JAX package's `staged` formulation is the device code's own
+in every mode (csrc/mpc_solve.cu). The kernel stages its teams' stage
+blocks in shared memory where a block can hold them and works in place
+otherwise, at every shape.
 
 `fbstab_mpc_solve_fused` takes the plain version (`fbstab_mpc_solve_plain`,
 the batched lockstep solver of core/algorithm.py on the MPC operators with
-the plain Newton step) only for tensors on the CPU. For CUDA tensors it launches the kernel or
-raises; it never falls back.
+the plain Newton step) only for tensors on the CPU. For CUDA tensors it
+launches the kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -21,17 +27,6 @@ from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
 from fbstab_tpu_torch.options import Options
-
-# The dynamic shared memory a block of K2 or K4 gets (the default; they do
-# not opt in to more).
-SMEM_LIMIT = 48 * 1024
-
-
-def check_smem(what, nbytes):
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{what} needs {nbytes} bytes of shared memory per "
-                         f"block, beyond the {SMEM_LIMIT} it reserves")
-
 
 def fbstab_mpc_solve_plain(data, z0, l0, v0, options: Options):
     """The plain PyTorch version of K2, whose Newton step is the plain K1
@@ -59,10 +54,13 @@ def solve_opts(options: Options, struct=None):
         nonmonotone=int(o.nonmonotone_linesearch))
 
 
-def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
+def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int,
+                     lowmem: bool = False):
     """Allocates outputs and scratch and launches K2 from `lib` on the
-    batch-first inputs (contiguous, as the kernel reads them). Returns
-    batch-first (Variable, CoreOut)."""
+    batch-first inputs (contiguous, as the kernel reads them), in the
+    standard or (lowmem) the recompute-factors mode. Returns batch-first
+    (Variable, CoreOut). Raises KernelResourceError, before anything is
+    allocated, where the card cannot give the scratch."""
     N, nx, nu, nc = (data.A.shape[-3], data.A.shape[-1], data.B.shape[-1],
                      data.E.shape[-2])
     B = z0.shape[0]
@@ -75,7 +73,9 @@ def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {(B, n)}")
     check_batch(B, data)
-    check_smem("K2", lib.fb_solve_smem_bytes(N, nx, nu, nc))
+    from fbstab_tpu_torch.ops._build import check, check_scratch
+    wsf = lib.fb_solve_ws_floats(N, nx, nu, nc, int(lowmem))
+    check_scratch("fbstab_mpc_solve", B, wsf, dev)
     ins = [a.contiguous() for a in (
         data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
         data.A, data.B, data.E, data.L, z0, l0, v0)]
@@ -90,12 +90,11 @@ def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
     newton = torch.empty(B, **i32)
     prox = torch.empty(B, **i32)
     res0 = torch.empty(B, **f32)
-    ws = torch.empty(B, lib.fb_solve_ws_floats(N, nx, nu, nc), **f32)
+    ws = torch.empty(B, wsf, **f32)
     outs = (z, l, v, y, eflag, res, newton, prox, res0, ws)
-    err = lib.fb_mpc_solve(N, nx, nu, nc, B, solve_opts(options),
+    err = lib.fb_mpc_solve(N, nx, nu, nc, B, int(lowmem), solve_opts(options),
                            *[a.data_ptr() for a in ins],
                            *[a.data_ptr() for a in outs], stream)
-    from fbstab_tpu_torch.ops._build import check
     check(err, "fbstab_mpc_solve")
     x = Variable(z=z, l=l, v=v, y=y)
     core = CoreOut(eflag=eflag, residual=res, newton_iters=newton,
@@ -104,10 +103,15 @@ def launch_mpc_solve(lib, data, z0, l0, v0, options: Options, stream: int):
     return x, core
 
 
-def fbstab_mpc_solve_fused(data, z0, l0, v0, options: Options):
+def fbstab_mpc_solve_fused(data, z0, l0, v0, options: Options,
+                           lowmem: bool = False):
     """Batched MPC solve, (B, ...) batch-first in and out, matching
     `fbstab_solve_batch`'s contract lane for lane. CPU tensors take the
-    plain version; CUDA float32 tensors launch K2."""
+    plain version; CUDA float32 tensors launch K2, in the recompute-factors
+    mode with `lowmem` (the JAX signature's; the batch dispatch picks it
+    with models.mpc_qp.riccati_mode). Counts the standard kernel's
+    launches in `.launches`, the recompute-factors kernel's in
+    `.launches_lowmem`."""
     if z0.device.type == "cpu":
         return fbstab_mpc_solve_plain(data, z0, l0, v0, options)
     if not z0.is_cuda:
@@ -115,9 +119,13 @@ def fbstab_mpc_solve_fused(data, z0, l0, v0, options: Options):
     from fbstab_tpu_torch.ops._build import load_library
     lib = load_library()
     stream = torch.cuda.current_stream(z0.device).cuda_stream
-    out = launch_mpc_solve(lib, data, z0, l0, v0, options, stream)
-    fbstab_mpc_solve_fused.launches += 1
+    out = launch_mpc_solve(lib, data, z0, l0, v0, options, stream, lowmem)
+    if lowmem:
+        fbstab_mpc_solve_fused.launches_lowmem += 1
+    else:
+        fbstab_mpc_solve_fused.launches += 1
     return out
 
 
 fbstab_mpc_solve_fused.launches = 0
+fbstab_mpc_solve_fused.launches_lowmem = 0

@@ -9,6 +9,14 @@ loop runs in PyTorch (models/mpc_subfused.py). Lanes that enter done, or
 that succeed in the kernel, return xi = xbar, Eo = 0 and their counters
 and dx norm unchanged.
 
+The mode is part of the loop-invariant layout (`SubfusedData.lowmem`):
+lowmem launches the recompute-factors kernel (the JAX package's
+`_make_subproblem_kernel(lowmem=True)`), whose Newton steps are bit for
+bit the standard kernel's; the plain version does not depend on it. The
+kernel works stage by stage in every mode, the counterpart of the JAX
+kernel's `staged` formulation, and stages its team's stage block in shared
+memory where a block can hold it, in place otherwise.
+
 `mpc_subproblem_fused` takes the plain version (`mpc_subproblem_plain`,
 the lockstep inner loop of core/algorithm.py on the plain Newton step) only
 for tensors on the CPU. For CUDA tensors it launches the kernel or raises;
@@ -22,7 +30,6 @@ from typing import NamedTuple
 import torch
 
 from fbstab_tpu_torch.core.variable import Variable, var_norm
-from fbstab_tpu_torch.ops.mpc_solve_cuda import check_smem
 from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
 from fbstab_tpu_torch.options import Options
 
@@ -32,15 +39,17 @@ class SubfusedData(NamedTuple):
     float32 data contiguous, the instance-major layout K4 reads."""
 
     data: object                  # MpcQPData, (B, ...)
+    lowmem: bool = False          # K4's recompute-factors mode
 
 
-def prep_subfused_data(data) -> SubfusedData:
+def prep_subfused_data(data, lowmem: bool = False) -> SubfusedData:
     """The loop-invariant kernel layout, built once per solve outside the
     outer loop (`prep_subfused_data` in the JAX package): a contiguous copy
-    of any array of CUDA float32 data that is not contiguous already."""
+    of any array of CUDA float32 data that is not contiguous already, and
+    the mode every launch of the solve takes."""
     if data.Q.is_cuda and data.Q.dtype == torch.float32:
         data = type(data)(*(a.contiguous() for a in data))
-    return SubfusedData(data=data)
+    return SubfusedData(data=data, lowmem=lowmem)
 
 
 def mpc_subproblem_plain(prep: SubfusedData, xbar: Variable, itol_prev,
@@ -74,9 +83,11 @@ def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
                       dxn_prev, newton0, done, options: Options,
                       stream: int):
     """Allocates outputs and scratch and launches K4 from `lib` on the
-    batch-first data of `prep` and iterate. Returns batch-first results."""
+    batch-first data of `prep` and iterate, in `prep`'s mode. Returns
+    batch-first results. Raises KernelResourceError, before anything is
+    allocated, where the card cannot give the scratch."""
     from fbstab_tpu_torch.models.mpc_qp import mpc_dims
-    from fbstab_tpu_torch.ops._build import check
+    from fbstab_tpu_torch.ops._build import check, check_scratch
     from fbstab_tpu_torch.ops.mpc_solve_cuda import solve_opts
     data = prep.data
     N, nx, nu, nc = mpc_dims(data)
@@ -96,7 +107,9 @@ def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
             raise ValueError(f"{name}: expected ({B},) on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
     check_batch(B, data)
-    check_smem("K4", lib.fb_subproblem_smem_bytes(N, nx, nu, nc))
+    lowmem = int(prep.lowmem)
+    wsf = lib.fb_subproblem_ws_floats(N, nx, nu, nc, lowmem)
+    check_scratch("mpc_subproblem", B, wsf, dev)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     ins = (*(a.contiguous() for a in (
@@ -108,10 +121,9 @@ def launch_subproblem(lib, prep: SubfusedData, xbar: Variable, itol_prev,
                   for n in (N1 * ns, N1 * nx, N1 * nc, N1 * nc))
     Eo, Ek, itol, dxn = (torch.empty(B, **f32) for _ in range(4))
     newton, lfail, success = (torch.empty(B, **i32) for _ in range(3))
-    ws = torch.empty(B, lib.fb_subproblem_ws_floats(N, nx, nu, nc),
-                     **f32)
+    ws = torch.empty(B, wsf, **f32)
     outs = (z, l, v, y, Eo, newton, lfail, Ek, success, itol, dxn, ws)
-    err = lib.fb_mpc_subproblem(N, nx, nu, nc, B, solve_opts(options),
+    err = lib.fb_mpc_subproblem(N, nx, nu, nc, B, lowmem, solve_opts(options),
                                 *[a.data_ptr() for a in ins],
                                 *[a.data_ptr() for a in outs], stream)
     check(err, "mpc_subproblem")
@@ -125,7 +137,8 @@ def mpc_subproblem_fused(prep: SubfusedData, xbar: Variable, itol_prev,
     the inner Newton loop and the dx norm, per lane. xbar is the proximal
     center (B, ...); itol_prev, dxn_prev (B,) float, newton0 (B,) int,
     done (B,) bool. CPU tensors take the plain version; CUDA float32
-    tensors launch K4."""
+    tensors launch K4 in `prep`'s mode, counted in `.launches` (standard)
+    or `.launches_lowmem` (recompute-factors)."""
     args = (prep, xbar, itol_prev, dxn_prev, newton0, done, options)
     if xbar.z.device.type == "cpu":
         return mpc_subproblem_plain(*args)
@@ -135,8 +148,12 @@ def mpc_subproblem_fused(prep: SubfusedData, xbar: Variable, itol_prev,
     lib = load_library()
     stream = torch.cuda.current_stream(xbar.z.device).cuda_stream
     out = launch_subproblem(lib, *args, stream)
-    mpc_subproblem_fused.launches += 1
+    if prep.lowmem:
+        mpc_subproblem_fused.launches_lowmem += 1
+    else:
+        mpc_subproblem_fused.launches += 1
     return out
 
 
 mpc_subproblem_fused.launches = 0
+mpc_subproblem_fused.launches_lowmem = 0

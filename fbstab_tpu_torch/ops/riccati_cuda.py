@@ -1,13 +1,17 @@
 """K1, the batched MPC Newton step, as a CUDA kernel (csrc/riccati.cu).
 
-Counterpart of `fbstab_tpu/ops/riccati_pallas.py::riccati_newton_step_batched`.
-One launch runs, for every instance of the batch, the PFB weights, the
-barrier-augmented stage Hessians, the forward Riccati matrix recursion,
-the forward vector recursion and the backward substitution, giving
-(dz, dl); the dual recovery (dv, dy) is a wide elementwise pass done here
-in PyTorch, as the JAX wrapper leaves it to XLA. The kernel runs a team of
-threads per instance on the batch-first (instance-major) tensors as torch
-holds them.
+Counterpart of `fbstab_tpu/ops/riccati_pallas.py::riccati_newton_step_batched`
+in both its modes: `lowmem=True` launches the recompute-factors kernel,
+which keeps only the carried Riccati factors and recomputes each stage's
+in the vector passes, bit for bit the storing kernel's step (the JAX
+package's lowmem launch, riccati_pallas.py:539). The plain version does
+not depend on the mode. One launch runs, for every instance of the
+batch, the PFB weights, the barrier-augmented stage Hessians, the forward
+Riccati matrix recursion, the forward vector recursion and the backward
+substitution, giving (dz, dl); the dual recovery (dv, dy) is a wide
+elementwise pass done here in PyTorch, as the JAX wrapper leaves it to
+XLA. The kernel runs a team of threads per instance on the batch-first
+(instance-major) tensors as torch holds them.
 
 `riccati_newton_step_batched` takes the plain version
 (`riccati_newton_step_plain`, the Python stage loop of models/mpc_qp.py)
@@ -47,10 +51,12 @@ def check_batch(B, data):
 
 
 def launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
-                        alpha: float, stream: int):
+                        alpha: float, stream: int, lowmem: bool = False):
     """Allocates outputs and scratch and launches K1 from `lib` on the
-    batch-first inputs (contiguous, as the kernel reads them). Returns
-    batch-first (dz, dl)."""
+    batch-first inputs (contiguous, as the kernel reads them), in the
+    storing or (lowmem) the recompute-factors mode. Returns batch-first
+    (dz, dl). Raises KernelResourceError where the card cannot give the
+    scratch."""
     N, nx, nu, nc = (data.A.shape[-3], data.A.shape[-1], data.B.shape[-1],
                      data.E.shape[-2])
     B = v.shape[0]
@@ -67,28 +73,34 @@ def launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
     sig = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     sig = sig.reshape(-1).expand(B).contiguous()
     check_batch(B, data)
+    from fbstab_tpu_torch.ops._build import check, check_scratch
+    wsf = lib.fb_riccati_ws_floats(N, nx, nu, nc, int(lowmem))
+    check_scratch("riccati_newton_step", B, wsf, dev)
     ins = [a.contiguous() for a in (
         data.Q, data.R, data.S, data.A, data.B, data.E, data.L,
         v, y, vbar, rz, rl, rv)]
     f32 = dict(dtype=torch.float32, device=dev)
     dz = torch.empty(B, N1 * ns, **f32)
     dl = torch.empty(B, N1 * nx, **f32)
-    ws = torch.empty(B, lib.fb_riccati_ws_floats(N, nx, nu, nc), **f32)
+    ws = torch.empty(B, wsf, **f32)
     err = lib.fb_riccati_step(
-        N, nx, nu, nc, B, float(alpha), 1.0 - float(alpha), sig.data_ptr(),
-        *[a.data_ptr() for a in ins], dz.data_ptr(), dl.data_ptr(),
-        ws.data_ptr(), stream)
-    from fbstab_tpu_torch.ops._build import check
+        N, nx, nu, nc, B, int(lowmem), float(alpha), 1.0 - float(alpha),
+        sig.data_ptr(), *[a.data_ptr() for a in ins], dz.data_ptr(),
+        dl.data_ptr(), ws.data_ptr(), stream)
     check(err, "riccati_newton_step")
     return dz, dl
 
 
 def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
-                                alpha: float):
+                                alpha: float, lowmem: bool = False):
     """Batched Newton step. data: MpcQPData (batch-first); v, y, vbar:
     (B, nv); rz, rl, rv: (B, nz / nl / nv), the NEGATED inner residual;
     sigma: a scalar or per-lane (B,). Returns batch-first (dz, dl, dv, dy).
-    CPU tensors take the plain version; CUDA float32 tensors launch K1."""
+    CPU tensors take the plain version; CUDA float32 tensors launch K1, in
+    the recompute-factors mode with `lowmem` (the JAX signature's; the
+    solvers' dispatch picks it with models.mpc_qp.riccati_mode). Counts
+    the storing kernel's launches in `.launches`, the recompute-factors
+    kernel's in `.launches_lowmem`."""
     if v.device.type == "cpu":
         return riccati_newton_step_plain(data, v, y, vbar, rz, rl, rv,
                                          sigma, alpha)
@@ -98,8 +110,11 @@ def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
     lib = load_library()
     stream = torch.cuda.current_stream(v.device).cuda_stream
     dz, dl = launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
-                                 alpha, stream)
-    riccati_newton_step_batched.launches += 1
+                                 alpha, stream, lowmem)
+    if lowmem:
+        riccati_newton_step_batched.launches_lowmem += 1
+    else:
+        riccati_newton_step_batched.launches += 1
 
     # Dual recovery (riccati_linear_solver.cc:329-342).
     B = v.shape[0]
@@ -117,3 +132,4 @@ def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
 
 
 riccati_newton_step_batched.launches = 0
+riccati_newton_step_batched.launches_lowmem = 0

@@ -35,7 +35,9 @@ def nbytes(*tensors):
 def riccati_flops(N, nx, nu, nc):
     """One Riccati Newton step (K1): stage Hessians, the factor recursion
     (Choleskys, triangular solves with matrix right-hand sides, products)
-    and the vector recursions."""
+    and the vector recursions. It is the bound's work in both modes: the
+    recompute-factors mode (lowmem) computes the same step, bit for bit,
+    and forms each stage's factors twice more by its own choice."""
     stage = (2 * nc * (nx * nx + nu * nu + nu * nx)      # E'GE, L'GL, L'GE
              + 2 * nx ** 3 + nx ** 3 / 3                 # inv(L L'), chol M
              + nx * nx * nu + nu ** 3 / 3 + 2 * nu * nu * nx   # SM, SG
@@ -43,6 +45,27 @@ def riccati_flops(N, nx, nu, nc):
              + nx ** 3 / 3 + 2 * nx * nx * nu + 2 * nx ** 3    # L(i+1)
              + 12 * (nx * nx + nx * nu + nu * nu))        # vector passes
     return (N + 1) * stage
+
+
+def mpc_solve_bound(B, N, nx, nu, nc, newton, prox, launches=1):
+    """(bound_ms, bound_by) of a fused MPC solve of B instances from the
+    shapes and this run's mean Newton and proximal counts (one linesearch
+    trial a Newton iteration, solve_flops): K2 (launches=1) reads the data
+    and the guess once and writes the point and five scalars a lane; K4
+    under the host outer loop reads the data and the proximal center and
+    writes the iterate and eight scalars a lane in each of `launches`
+    launches."""
+    N1 = N + 1
+    point = N1 * (2 * nx + nu + 2 * nc)                 # z, l, v, y
+    data = mpc_data_floats(N, nx, nu, nc)
+    flops = B * solve_flops(
+        riccati_flops(N, nx, nu, nc) + 8 * N1 * nc,
+        mpc_residual_flops(N, nx, nu, nc), newton, prox)
+    if launches == 1:
+        floats = data + (point - N1 * nc) + point + 5
+    else:
+        floats = launches * (data + 2 * point + 8)
+    return bound(flops, 4 * B * floats)
 
 
 def mpc_residual_flops(N, nx, nu, nc):

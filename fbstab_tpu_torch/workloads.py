@@ -28,14 +28,16 @@ SPARSE = dict(nz=400, nl=40, nv=200)
 
 def headline_arrays(B, N=30, nx=8, nu=3, nc=6, seed=0):
     """The scenario-MPC batch as numpy float64 arrays: a shared stable
-    plant, varied x0 and cost offsets, input box |u| <= 1. The shared
-    leaves are read-only broadcast views."""
+    plant, varied x0 and cost offsets, input box |u| <= 1 (on the first
+    nc // 2 inputs where nc < 2 nu; rows beyond the box are 0 <= 1). The
+    shared leaves are read-only broadcast views."""
     rng = np.random.default_rng(seed)
     A1 = np.eye(nx) + 0.08 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
     B1 = 0.2 * rng.standard_normal((nx, nu))
     L1 = np.zeros((nc, nu))
-    L1[:nu] = np.eye(nu)
-    L1[nu:2 * nu] = -np.eye(nu)
+    k = min(nu, nc // 2)
+    L1[:k] = np.eye(nu)[:k]
+    L1[k:2 * k] = -np.eye(nu)[:k]
     tile = lambda M, n: np.broadcast_to(M, (B, n) + M.shape)
     Np1 = N + 1
     return dict(
@@ -117,16 +119,34 @@ def build_dense(B, n, q, nl, device, dtype=torch.float32):
                          device=device)
 
 
-def build_copoly(B, device):
+def build_copoly(B, device, N=COPOLY["N"]):
     """bench.py copoly's float32 batch: the copolymerization reactor at
-    COPOLY's horizon with x0 = 0.02 N(0, 1) per lane (seed 0)."""
+    horizon N (by default COPOLY's) with x0 = 0.02 N(0, 1) per lane
+    (seed 0)."""
     from fbstab_tpu_torch.models.mpc_qp import batch_data
     from fbstab_tpu_torch.models.ocp_fixtures import copolymerization_reactor
-    one, _ = copolymerization_reactor(COPOLY["N"], dtype=torch.float32,
-                                      device=device)
+    one, _ = copolymerization_reactor(N, dtype=torch.float32, device=device)
     x0 = 0.02 * np.random.default_rng(0).standard_normal((B, COPOLY["nx"]))
     return batch_data(one, B)._replace(
         x0=torch.tensor(x0, dtype=torch.float32, device=device))
+
+
+def build_plant(name, N, B, pert, device, seed=7):
+    """A reference plant (ocp_fixtures, by name) at horizon N as a float32
+    batch of B lanes, x0 perturbed around the nominal as bench.py's
+    plants_contract_check perturbs it: x0 + pert max|x0| |N(0, 1)|, lane 0
+    nominal."""
+    from fbstab_tpu_torch.models import ocp_fixtures
+    from fbstab_tpu_torch.models.mpc_qp import batch_data
+    one, _ = getattr(ocp_fixtures, name)(N, dtype=torch.float32,
+                                         device=device)
+    x0 = one.x0[0].cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(seed)
+    scale = float(np.max(np.abs(x0))) or 0.02
+    offs = pert * scale * np.abs(rng.standard_normal((B, x0.shape[0])))
+    offs[0] = 0.0
+    return batch_data(one, B)._replace(x0=torch.tensor(
+        x0[None] + offs, dtype=torch.float32, device=device))
 
 
 def zeros_guess(data):

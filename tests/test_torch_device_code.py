@@ -74,16 +74,18 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for ws in (lib.fb_riccati_ws_floats, lib.fb_solve_ws_floats,
-               lib.fb_solve_smem_bytes, lib.fb_subproblem_ws_floats,
-               lib.fb_subproblem_smem_bytes):
-        ws.argtypes = [I] * 4
+               lib.fb_subproblem_ws_floats):
+        ws.argtypes = [I] * 5
         ws.restype = ctypes.c_longlong
-    lib.fb_riccati_step.argtypes = [I] * 5 + [D, D] + [P] * 17
-    lib.fb_mpc_solve.argtypes = [I] * 5 + [SolveOpts64] + [P] * 25
+    for smem in (lib.fb_solve_smem_bytes, lib.fb_subproblem_smem_bytes):
+        smem.argtypes = [I] * 4
+        smem.restype = ctypes.c_longlong
+    lib.fb_riccati_step.argtypes = [I] * 6 + [D, D] + [P] * 17
+    lib.fb_mpc_solve.argtypes = [I] * 6 + [SolveOpts64] + [P] * 25
     lib.fb_dense_ws_floats.argtypes = [I] * 3
     lib.fb_dense_ws_floats.restype = ctypes.c_longlong
     lib.fb_dense_solve.argtypes = [I] * 4 + [SolveOpts64] + [P] * 19
-    lib.fb_mpc_subproblem.argtypes = [I] * 5 + [SolveOpts64] + [P] * 32
+    lib.fb_mpc_subproblem.argtypes = [I] * 6 + [SolveOpts64] + [P] * 32
     lib.fb_assoc_combine.argtypes = [I] * 3 + [P] * 16
     lib.fb_df_probe.argtypes = [I] * 2 + [P] * 8
     lib.fb_mxu_probe.argtypes = [I] * 5 + [D] + [P] * 3
@@ -106,9 +108,10 @@ def on_team(lib, T, stages=True):
         lib.fb_replay_set_stages(1)
 
 
-def _replay_solve(lib, data, options):
+def _replay_solve(lib, data, options, lowmem=False):
     """The replayed K2 from zero initial guesses on the instance-major
-    (batch-first) arrays: (z, v, eflag, newton, prox, res)."""
+    (batch-first) arrays, in the standard or (lowmem) the recompute-factors
+    mode: (z, v, eflag, newton, prox, res)."""
     N, nx, nu, nc = tm.mpc_dims(data)
     B, N1 = data.x0.shape[0], N + 1
     f64 = dict(dtype=torch.float64)
@@ -123,9 +126,10 @@ def _replay_solve(lib, data, options):
     eflag, newton, prox = (torch.empty(B, dtype=torch.int32)
                            for _ in range(3))
     res, res0 = torch.empty(B, **f64), torch.empty(B, **f64)
-    ws = torch.empty(B, lib.fb_solve_ws_floats(N, nx, nu, nc), **f64)
+    ws = torch.empty(B, lib.fb_solve_ws_floats(N, nx, nu, nc, lowmem),
+                     **f64)
     outs = (z, l0b, v, y, eflag, res, newton, prox, res0, ws)
-    assert lib.fb_mpc_solve(N, nx, nu, nc, B,
+    assert lib.fb_mpc_solve(N, nx, nu, nc, B, lowmem,
                             solve_opts(options, SolveOpts64),
                             *[a.data_ptr() for a in ins],
                             *[a.data_ptr() for a in outs]) == 0
@@ -179,8 +183,8 @@ def test_replayed_solver_on_a_team_takes_the_plain_solvers_decisions(
         _check_replayed_solver(lib, make_data(), make_options())
 
 
-def _check_replayed_solver(lib, data, opts):
-    z, v, eflag, newton, prox, res = _replay_solve(lib, data, opts)
+def _check_replayed_solver(lib, data, opts, lowmem=False):
+    z, v, eflag, newton, prox, res = _replay_solve(lib, data, opts, lowmem)
     B = data.x0.shape[0]
     N, nx, nu, nc = tm.mpc_dims(data)
     zeros = lambda n: torch.zeros(B, n, dtype=torch.float64)
@@ -203,9 +207,10 @@ def _check_replayed_solver(lib, data, opts):
         atol=1e-9 * (1 + cp.initial_residual.max().item()))
 
 
-def _replay_step(lib, td, ins, T=1, stages=True):
+def _replay_step(lib, td, ins, T=1, stages=True, lowmem=False):
     """The replayed K1 on the instance-major (batch-first) arrays, on a
-    team of T host threads that stages or works in place: (dz, dl)."""
+    team of T host threads that stages or works in place, in the storing
+    or (lowmem) the recompute-factors mode: (dz, dl)."""
     N, nx, nu, nc = tm.mpc_dims(td)
     B = td.Q.shape[0]
     f64 = dict(dtype=torch.float64)
@@ -213,10 +218,11 @@ def _replay_step(lib, td, ins, T=1, stages=True):
                                      td.L, *ins[:-1])]
     dz = torch.empty(B, (N + 1) * (nx + nu), **f64)
     dl = torch.empty(B, (N + 1) * nx, **f64)
-    ws = torch.empty(B, lib.fb_riccati_ws_floats(N, nx, nu, nc), **f64)
     with on_team(lib, T, stages):
+        ws = torch.full((B, lib.fb_riccati_ws_floats(N, nx, nu, nc, lowmem)),
+                        float("nan"), **f64)
         assert lib.fb_riccati_step(
-            N, nx, nu, nc, B, ALPHA, 1.0 - ALPHA, ins[-1].data_ptr(),
+            N, nx, nu, nc, B, lowmem, ALPHA, 1.0 - ALPHA, ins[-1].data_ptr(),
             *[a.data_ptr() for a in args], dz.data_ptr(), dl.data_ptr(),
             ws.data_ptr()) == 0
     return dz, dl
@@ -231,6 +237,23 @@ K1_TEAMS = {"1": (1, True), "2": (2, True), "4": (4, True), "8": (8, True),
 # do), and a team of 8 in place, the team of one's path.
 K5_TEAMS = {"1": (1, True), "2": (2, True), "8": (8, True),
             "32": (32, True), "8_in_place": (8, False)}
+
+
+def _step_case(plant, N, B):
+    """A plant's (or the gate corner's) data at horizon N, B lanes, and
+    the Newton-step inputs: per-lane sigma, random iterates around the
+    complementarity corner."""
+    arrays = (headline_arrays(B, N, 32, 24, 48) if plant == "gate_corner"
+              else plant_arrays(plant, N, B))
+    N, nx, nu, nc, nz, nl, nv = dims(arrays)
+    rng = np.random.default_rng(N)
+    v = np.abs(rng.standard_normal((B, nv)))
+    y = rng.standard_normal((B, nv))
+    vbar = v + 0.1 * rng.standard_normal((B, nv))
+    rz, rl, rv = (rng.standard_normal((B, n)) for n in (nz, nl, nv))
+    sigma = 10.0 ** rng.uniform(-4, -1, B)
+    td = torch_data(arrays, torch.float64)
+    return td, [torch.tensor(a) for a in (v, y, vbar, rz, rl, rv, sigma)]
 
 
 @pytest.mark.parametrize("team", list(K1_TEAMS))
@@ -248,17 +271,7 @@ def test_replayed_newton_step_matches_plain_step(lib, plant, N, B, team):
     kernel's split of every stage) dz and dl bit for bit the team of one's,
     since every factor and step entry is computed by one thread in the team
     of one's order."""
-    arrays = (headline_arrays(B, N, 32, 24, 48) if plant == "gate_corner"
-              else plant_arrays(plant, N, B))
-    N, nx, nu, nc, nz, nl, nv = dims(arrays)
-    rng = np.random.default_rng(N)
-    v = np.abs(rng.standard_normal((B, nv)))
-    y = rng.standard_normal((B, nv))
-    vbar = v + 0.1 * rng.standard_normal((B, nv))
-    rz, rl, rv = (rng.standard_normal((B, n)) for n in (nz, nl, nv))
-    sigma = 10.0 ** rng.uniform(-4, -1, B)
-    td = torch_data(arrays, torch.float64)
-    ins = [torch.tensor(a) for a in (v, y, vbar, rz, rl, rv, sigma)]
+    td, ins = _step_case(plant, N, B)
     T, stages = K1_TEAMS[team]
     dz, dl = _replay_step(lib, td, ins, T, stages)
     pz, pl, *_ = tm._fused_step_impl(td, *ins, ALPHA)
@@ -270,6 +283,42 @@ def test_replayed_newton_step_matches_plain_step(lib, plant, N, B, team):
     if T > 1:
         oz, ol = _replay_step(lib, td, ins)
         assert torch.equal(dz, oz) and torch.equal(dl, ol)
+
+
+@pytest.mark.parametrize("team", ["1", "8", "32", "32_in_place"])
+@pytest.mark.parametrize("plant,N,B", [
+    ("copolymerization_reactor", 6, 2),
+    ("spacecraft_relative_motion", 9, 2),
+    ("gate_corner", 2, 1),
+])
+def test_replayed_lowmem_step_is_bit_equal_to_the_storing_step(
+        lib, plant, N, B, team):
+    """The recompute-factors instantiation of riccati.cuh (Store false:
+    only Lc kept, each stage's M, SM, SG, AM and P recomputed from it in
+    the vector passes) gives the storing instantiation's dz and dl bit for
+    bit, on the team of one and on teams that stage or work in place, at
+    the copolymerization reactor's, the spacecraft plant's and the gate
+    corner's stage dims. The scratch starts as NaN, so a recomputed factor
+    read from anywhere but the stage block would show."""
+    td, ins = _step_case(plant, N, B)
+    T, stages = K1_TEAMS[team]
+    dz, dl = _replay_step(lib, td, ins, T, stages)
+    lz, ll = _replay_step(lib, td, ins, T, stages, lowmem=True)
+    assert torch.isfinite(dz).all() and torch.isfinite(dl).all()
+    assert torch.equal(lz, dz) and torch.equal(ll, dl)
+
+
+@pytest.mark.parametrize("case", ["mixed_single_precision", "spacecraft"])
+def test_replayed_lowmem_solver_takes_the_plain_solvers_decisions(lib, case):
+    """K2's recompute-factors instantiation, replayed: the plain
+    solver's decisions on every lane, and the standard instantiation's
+    iterates bit for bit."""
+    make_data, make_options = SOLVE_CASES[case]
+    data, opts = make_data(), make_options()
+    _check_replayed_solver(lib, data, opts, lowmem=True)
+    got = _replay_solve(lib, data, opts, lowmem=True)
+    want = _replay_solve(lib, data, opts)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _replay_dense(lib, data, options, T=1, stages=True):
@@ -383,10 +432,11 @@ def _replayed_subproblem(lib):
         xi = [torch.empty(B, a.shape[1], **f64) for a in xbar]
         Eo, Ek, itol, dxn = (torch.empty(B, **f64) for _ in range(4))
         newton, lfail, success = (torch.empty(B, **i32) for _ in range(3))
-        ws = torch.empty(B, lib.fb_subproblem_ws_floats(N, nx, nu, nc),
-                         **f64)
+        lowmem = int(prep.lowmem)
+        ws = torch.empty(
+            B, lib.fb_subproblem_ws_floats(N, nx, nu, nc, lowmem), **f64)
         outs = (*xi, Eo, newton, lfail, Ek, success, itol, dxn, ws)
-        assert lib.fb_mpc_subproblem(N, nx, nu, nc, B,
+        assert lib.fb_mpc_subproblem(N, nx, nu, nc, B, lowmem,
                                      solve_opts(options, SolveOpts64),
                                      *[a.data_ptr() for a in ins],
                                      *[a.data_ptr() for a in outs]) == 0
@@ -425,14 +475,30 @@ def test_subfused_loop_on_replayed_k4_team_takes_the_plain_solvers_decisions(
         _check_subfused_on_replay(lib, make_data(), make_options())
 
 
-def _check_subfused_on_replay(lib, data, opts):
+@pytest.mark.parametrize("case,T", [("mixed_single_precision", 1),
+                                    ("copoly_n4_abs_tol_1e-8", 1),
+                                    ("copoly_n4_abs_tol_1e-8", 32)])
+def test_subfused_loop_on_replayed_lowmem_k4_takes_the_plain_solvers_decisions(
+        lib, case, T):
+    """K4's recompute-factors instantiation under the host outer loop
+    (lowmem=True, as the JAX package's `_make_subproblem_kernel(lowmem=
+    True)`), on the team of one and on K4's warp: the plain solver's
+    decisions on every lane."""
+    make_data, make_options = SUBPROBLEM_CASES[case]
+    with on_team(lib, T):
+        _check_subfused_on_replay(lib, make_data(), make_options(),
+                                  lowmem=True)
+
+
+def _check_subfused_on_replay(lib, data, opts, lowmem=False):
     N, nx, nu, nc = tm.mpc_dims(data)
     B = data.x0.shape[0]
     zeros = lambda n: torch.zeros(B, n, dtype=torch.float64)
     guess = (zeros((N + 1) * (nx + nu)), zeros((N + 1) * nx),
              zeros((N + 1) * nc))
     xs, cs = fbstab_mpc_solve_subfused(data, *guess, opts,
-                                       subproblem=_replayed_subproblem(lib))
+                                       subproblem=_replayed_subproblem(lib),
+                                       lowmem=lowmem)
     xp, cp = fbstab_mpc_solve_plain(data, *guess, opts)
     for name in ("eflag", "newton_iters", "prox_iters"):
         np.testing.assert_array_equal(getattr(cs, name).numpy(),
@@ -448,33 +514,58 @@ def _check_subfused_on_replay(lib, data, opts):
         atol=1e-9 * (1 + cp.initial_residual.max().item()))
 
 
+# The most dynamic shared memory a block of an H100 can opt in to
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+H100_SMEM_OPTIN = 232448
+
+
 @pytest.mark.parametrize("dims", [(30, 8, 3, 6), (40, 8, 3, 12),
                                   (80, 18, 5, 10), (6, 2, 1, 6),
-                                  (12, 6, 3, 12)])
+                                  (12, 6, 3, 12), (10, 24, 8, 8),
+                                  (160, 32, 24, 48)])
 def test_layout_helpers_match_the_device_code(lib, dims):
-    """The layout functions that K2's and K4's wrappers size their scratch
-    and check their shared memory with (csrc/mpc_solve.cuh, here compiled
-    from the same headers; the headline, the two caps, the double
-    integrator, the servo): both kernels keep K1's Riccati factors in
-    device memory and K1's stage block in shared memory, one per team (four
-    teams to a block of K2, one to K4's), K2 five primal-dual points beside
-    the factors and K4 three; and a block of the kernel that the tier gate
-    gives these dims fits the shared memory the kernel reserves."""
-    from fbstab_tpu_torch.ops.mpc_solve_cuda import SMEM_LIMIT
+    """The layout functions that K1's, K2's and K4's launches size their
+    scratch and shared memory with (csrc/riccati.cuh, csrc/mpc_solve.cuh,
+    here compiled from the same headers; the headline, the two boxes, the
+    double integrator, the servo, a K2 corner and the JAX package's gate
+    corner): the three kernels keep K1's Riccati factors in device memory
+    and K1's stage block in shared memory, one per team (four teams to a
+    block of K2, one to K4's), or beside the factors for a team that works
+    in place; K2 five primal-dual points beside the factors and K4 three.
+    The recompute-factors layout drops N1 (nx^2 + nu nx + nu^2) +
+    N (nx^2 + nx nu) floats of factors and nothing else. At the gate
+    corner a team's stage block is 48.7 KB, beyond the 48 KB a block gets
+    by default; four of them (K2's block) still fit what an H100's block
+    can opt in to, so K2 and K4 stage at every shape of the JAX package's
+    envelope."""
     N, nx, nu, nc = dims
-    point = (N + 1) * (2 * nx + nu + 2 * nc)
+    N1 = N + 1
+    point = N1 * (2 * nx + nu + 2 * nc)
     k2_smem, k4_smem = (lib.fb_solve_smem_bytes(*dims),
                         lib.fb_subproblem_smem_bytes(*dims))
     stage = k4_smem // 4
-    factors = lib.fb_riccati_ws_floats(*dims) - stage
     assert k4_smem == 4 * stage and k2_smem == 4 * k4_smem
-    assert lib.fb_solve_ws_floats(*dims) == factors + 5 * point
-    assert lib.fb_subproblem_ws_floats(*dims) == factors + 3 * point
-    cap = tm.SOLVE_DIMS_CAP if nx <= tm.SOLVE_DIMS_CAP["nx"] else (
-        tm.SUBPROBLEM_DIMS_CAP)
-    assert all(d <= cap[k] for k, d in zip(("N", "nx", "nu", "nc"), dims))
-    smem = k2_smem if cap is tm.SOLVE_DIMS_CAP else k4_smem
-    assert smem <= SMEM_LIMIT
+    dropped = N1 * (nx * nx + nu * nx + nu * nu) + N * (nx * nx + nx * nu)
+    for lowmem in (0, 1):
+        with on_team(lib, 8):                     # teams that stage
+            factors = lib.fb_riccati_ws_floats(*dims, lowmem)
+            assert lib.fb_solve_ws_floats(*dims, lowmem) == (
+                factors + 5 * point)
+            assert lib.fb_subproblem_ws_floats(*dims, lowmem) == (
+                factors + 3 * point)
+        with on_team(lib, 8, stages=False):       # teams in place
+            assert lib.fb_riccati_ws_floats(*dims, lowmem) == factors + stage
+            assert lib.fb_solve_ws_floats(*dims, lowmem) == (
+                factors + stage + 5 * point)
+            assert lib.fb_subproblem_ws_floats(*dims, lowmem) == (
+                factors + stage + 3 * point)
+        if lowmem:
+            assert factors == store - dropped
+        else:
+            store = factors
+    assert k2_smem <= H100_SMEM_OPTIN
+    if dims == (160, 32, 24, 48):
+        assert stage * 4 == 49856 and k4_smem > 48 * 1024
 
 
 def _replay_combine(lib, left, right, T=1, stages=True):

@@ -114,14 +114,21 @@ def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
     dz, dl = riccati_cuda.launch_riccati_step(lib, td, *ins[:-1], ins[-1],
                                               ALPHA, 7)
     (args,) = lib.calls
-    assert args[:5] == (N, nx, nu, nc, 5) and args[-1] == 7
-    assert args[5] == pytest.approx(ALPHA) and args[6] == pytest.approx(
+    assert args[:6] == (N, nx, nu, nc, 5, 0) and args[-1] == 7
+    assert args[6] == pytest.approx(ALPHA) and args[7] == pytest.approx(
         1 - ALPHA)
     want = (td.Q, td.R, td.S, td.A, td.B, td.E, td.L, *ins[:-1])
-    assert list(args[8:21]) == [a.data_ptr() for a in want]
-    assert args[21:23] == (dz.data_ptr(), dl.data_ptr())
+    assert list(args[9:22]) == [a.data_ptr() for a in want]
+    assert args[22:24] == (dz.data_ptr(), dl.data_ptr())
     assert (tuple(dz.shape), tuple(dl.shape)) == ((5, nz), (5, nl))
-    assert lib.sizes == [(N, nx, nu, nc)]
+    assert lib.sizes == [(N, nx, nu, nc, 0)]
+    # The recompute-factors mode: the same arguments, the mode an int after
+    # B, the scratch the library's size for that mode.
+    lib = RecordingLib()
+    riccati_cuda.launch_riccati_step(lib, td, *ins[:-1], ins[-1], ALPHA, 7,
+                                     lowmem=True)
+    assert lib.calls[0][:6] == (N, nx, nu, nc, 5, 1)
+    assert lib.sizes == [(N, nx, nu, nc, 1)]
     assert not hasattr(riccati_cuda, "to_batch_last")
     with pytest.raises(ValueError, match="instances"):
         riccati_cuda.launch_riccati_step(lib, td._replace(Q=td.Q[:4]),
@@ -201,7 +208,7 @@ def test_cuda_kernel_matches_plain_version(shape, sigma_per_lane):
     want = riccati_cuda.riccati_newton_step_plain(td, *args, sig, ALPHA)
     from fbstab_tpu_torch.ops import _build
     info = _build.kernel_info(_build.load_library().fb_riccati_info,
-                              *tm.mpc_dims(td))
+                              *tm.mpc_dims(td), 0)
     assert (info["smem_bytes"] == 0) == (shape == "beyond_a_block")
     rel = lambda g, w: ((g.double() - w).abs().amax(1)
                         / (1 + w.abs().amax(1)))

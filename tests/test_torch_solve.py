@@ -172,20 +172,15 @@ class RecordingLib:
     and each size query, answers the queries with `ws_floats` and
     `smem_bytes`, and reports success."""
 
-    def __init__(self, ws_floats=11, smem_bytes=64):
+    def __init__(self, ws_floats=11):
         self.calls, self.sizes = [], []
-        self.ws_floats, self.smem_bytes = ws_floats, smem_bytes
+        self.ws_floats = ws_floats
 
     def _ws(self, *dims):
         self.sizes.append(("ws", dims))
         return self.ws_floats
 
-    def _smem(self, *dims):
-        self.sizes.append(("smem", dims))
-        return self.smem_bytes
-
     fb_solve_ws_floats = fb_subproblem_ws_floats = _ws
-    fb_solve_smem_bytes = fb_subproblem_smem_bytes = _smem
 
     def fb_mpc_solve(self, *args):
         self.calls.append(args)
@@ -196,39 +191,45 @@ class RecordingLib:
         return 0
 
 
-def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
+def test_launcher_hands_the_batch_first_tensors_to_the_kernel(monkeypatch):
     """K2 reads the data and the initial guess in place (instance-major is
     torch's batch-first layout) and writes (B, n) outputs that become the
-    result: no transposed copy on either side."""
+    result: no transposed copy on either side. The mode goes to the kernel
+    as an int after B."""
+    from fbstab_tpu_torch.ops import _build
+
     arrays = headline_arrays(5, N=4)
     data = torch_data(arrays, torch.float32)
     data = type(data)(*(a.contiguous() for a in data))
     N, nx, nu, nc, nz, nl, nv = dims(arrays)
     guess = [torch.zeros(5, n) for n in (nz, nl, nv)]
-    lib = RecordingLib()
-    x, core = mpc_solve_cuda.launch_mpc_solve(
-        lib, data, *guess, Options.single_precision(), 7)
-    (args,) = lib.calls
-    assert args[:5] == (N, nx, nu, nc, 5) and args[-1] == 7
-    ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
-           data.A, data.B, data.E, data.L, *guess)
-    assert list(args[6:21]) == [a.data_ptr() for a in ins]
-    assert list(args[21:25]) == [a.data_ptr() for a in x]
-    assert [tuple(a.shape) for a in x] == [(5, nz), (5, nl), (5, nv),
-                                           (5, nv)]
-    assert args[25] == core.eflag.data_ptr()
+    for lowmem in (False, True):
+        lib = RecordingLib()
+        x, core = mpc_solve_cuda.launch_mpc_solve(
+            lib, data, *guess, Options.single_precision(), 7, lowmem)
+        (args,) = lib.calls
+        assert args[:6] == (N, nx, nu, nc, 5, int(lowmem)) and args[-1] == 7
+        ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R,
+               data.S, data.A, data.B, data.E, data.L, *guess)
+        assert list(args[7:22]) == [a.data_ptr() for a in ins]
+        assert list(args[22:26]) == [a.data_ptr() for a in x]
+        assert [tuple(a.shape) for a in x] == [(5, nz), (5, nl), (5, nv),
+                                               (5, nv)]
+        assert args[26] == core.eflag.data_ptr()
+        # The scratch is sized by the library's own layout function for the
+        # launch in this mode.
+        assert lib.sizes == [("ws", (N, nx, nu, nc, int(lowmem)))]
     assert not hasattr(mpc_solve_cuda, "to_batch_last")
-    # The scratch and the shared memory are sized by the library's own
-    # layout functions.
-    assert sorted(lib.sizes) == [("smem", (N, nx, nu, nc)),
-                                 ("ws", (N, nx, nu, nc))]
     with pytest.raises(ValueError, match="instances"):
         mpc_solve_cuda.launch_mpc_solve(
             lib, data._replace(q=data.q[:4]), *guess,
             Options.single_precision(), 7)
-    # A stage block too large for the shared memory the kernel reserves.
-    big = RecordingLib(smem_bytes=mpc_solve_cuda.SMEM_LIMIT + 4)
-    with pytest.raises(ValueError, match="shared memory"):
+    # Scratch beyond what the card can give raises the named error before
+    # anything is allocated or launched: no fallback.
+    monkeypatch.setattr(_build, "device_memory_bytes",
+                        lambda dev: 4 * 5 * 11 - 1)
+    big = RecordingLib()
+    with pytest.raises(_build.KernelResourceError, match="scratch"):
         mpc_solve_cuda.launch_mpc_solve(big, data, *guess,
                                         Options.single_precision(), 7)
     assert big.calls == []

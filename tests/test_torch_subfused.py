@@ -94,15 +94,23 @@ def test_subfused_matches_lockstep_solver():
 
 
 def test_tier_gate_sends_large_stage_dims_to_k4():
-    """CUDA float32 batches beyond SOLVE_DIMS_CAP and within
-    SUBPROBLEM_DIMS_CAP take tier 2, decided from the shapes alone."""
+    """CUDA float32 batches within SUBPROBLEM_DIMS_CAP beyond
+    SOLVE_DIMS_CAP, and those the JAX package sends to its per-subproblem
+    kernel, take tier 2, decided from the shapes alone; tier 3 only where
+    the JAX package runs its scan."""
     copoly = (80, 18, 5, 10)
     cuda, f32 = torch.device("cuda"), torch.float32
     assert tm.mpc_solve_tier(copoly, f32, cuda) == 2
     assert tm.mpc_solve_tier((62, 2, 1, 6), f32, cuda) == 2
     assert tm.mpc_solve_tier((30, 8, 3, 6), f32, cuda) == 1
-    assert tm.mpc_solve_tier((81, 18, 5, 10), f32, cuda) == 3
-    assert tm.mpc_solve_tier((80, 18, 5, 12), f32, cuda) == 3
+    # Past the box, on the JAX package's K4 shapes: the copolymerization
+    # reactor to N = 89, the spacecraft plant to N = 160.
+    assert tm.mpc_solve_tier((81, 18, 5, 10), f32, cuda) == 2
+    assert tm.mpc_solve_tier((89, 18, 5, 10), f32, cuda) == 2
+    assert tm.mpc_solve_tier((160, 6, 3, 12), f32, cuda) == 2
+    # Where the JAX package runs its scan.
+    assert tm.mpc_solve_tier((90, 18, 5, 10), f32, cuda) == 3
+    assert tm.mpc_solve_tier((161, 2, 1, 6), f32, cuda) == 3
     assert tm.mpc_solve_tier(copoly, torch.float64, cuda) == 3
     assert tm.mpc_solve_tier(copoly, f32, "cpu") == 3
     cap = tm.SUBPROBLEM_DIMS_CAP
@@ -134,12 +142,13 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     assert (newton[:-1] > 0).any()
 
 
-def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
+def test_launcher_hands_the_batch_first_tensors_to_the_kernel(monkeypatch):
     """K4 reads the data and the proximal center in place and writes the
-    (B, n) iterate that becomes xi: no transposed copy on either side."""
+    (B, n) iterate that becomes xi: no transposed copy on either side. The
+    mode of the prepared data goes to the kernel as an int after B."""
     from test_torch_solve import RecordingLib
 
-    from fbstab_tpu_torch.ops.mpc_solve_cuda import SMEM_LIMIT
+    from fbstab_tpu_torch.ops import _build
 
     arrays = copoly_arrays(3, 4)
     data = torch_data(arrays, torch.float32)
@@ -149,22 +158,28 @@ def test_launcher_hands_the_batch_first_tensors_to_the_kernel():
     row = torch.ones(3)
     state = (row, 10 * row, torch.zeros(3, dtype=torch.int32),
              torch.zeros(3, dtype=torch.bool), Options.single_precision(), 7)
-    lib = RecordingLib()
-    out = k4.launch_subproblem(lib, k4.SubfusedData(data), xbar, *state)
-    (args,) = lib.calls
-    ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R, data.S,
-           data.A, data.B, data.E, data.L, *xbar)
-    assert list(args[6:22]) == [a.data_ptr() for a in ins]
-    assert list(args[26:30]) == [a.data_ptr() for a in out[0]]
-    assert tuple(out[0].z.shape) == tuple(z.shape) and args[-1] == 7
-    assert not hasattr(k4, "to_batch_last")
-    # The scratch and the shared memory are sized by the library's own
-    # layout functions, and a stage block beyond the shared memory the
-    # kernel reserves raises before the launch.
     dims = tm.mpc_dims(data)
-    assert sorted(lib.sizes) == [("smem", dims), ("ws", dims)]
-    big = RecordingLib(smem_bytes=SMEM_LIMIT + 4)
-    with pytest.raises(ValueError, match="shared memory"):
+    for lowmem in (False, True):
+        lib = RecordingLib()
+        out = k4.launch_subproblem(lib, k4.SubfusedData(data, lowmem), xbar,
+                                   *state)
+        (args,) = lib.calls
+        assert args[:6] == (*dims, 3, int(lowmem))
+        ins = (data.q, data.r, data.c, data.x0, data.d, data.Q, data.R,
+               data.S, data.A, data.B, data.E, data.L, *xbar)
+        assert list(args[7:23]) == [a.data_ptr() for a in ins]
+        assert list(args[27:31]) == [a.data_ptr() for a in out[0]]
+        assert tuple(out[0].z.shape) == tuple(z.shape) and args[-1] == 7
+        # The scratch is sized by the library's own layout function for the
+        # launch in this mode.
+        assert lib.sizes == [("ws", (*dims, int(lowmem)))]
+    assert not hasattr(k4, "to_batch_last")
+    # Scratch beyond what the card can give raises the named error before
+    # the launch: no fallback.
+    monkeypatch.setattr(_build, "device_memory_bytes",
+                        lambda dev: 4 * 3 * 11 - 1)
+    big = RecordingLib()
+    with pytest.raises(_build.KernelResourceError, match="scratch"):
         k4.launch_subproblem(big, k4.SubfusedData(data), xbar, *state)
     assert big.calls == []
 

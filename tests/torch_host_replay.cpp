@@ -129,12 +129,27 @@ void on_team(const F& body) {
     on_team_staging<false>(body);
 }
 
+// Whether the replayed kernels' teams stage (the scratch then holds no
+// stage block).
+static bool replay_stages() { return g_team > 1 && g_stages; }
+
 // Where a team keeps its stage block: the instance's buffer `stage` if it
-// stages, its scratch w otherwise.
+// stages, its Riccati scratch w (laid out for the mode) otherwise.
 template <class Tm>
 Lane stage_block(const Tm&, std::vector<float>& stage, Lane w,
-                 const MpcDims& D) {
-  return Tm::kStages ? Lane{stage.data(), 1} : w.at(ric_layout(D).stage);
+                 const MpcDims& D, bool lowmem) {
+  return Tm::kStages ? Lane{stage.data(), 1}
+                     : w.at(ric_layout(D, lowmem).stage);
+}
+
+// Calls f with the Riccati solve's mode as a compile-time flag: Store is
+// true for the storing mode, false for the recompute-factors mode.
+template <class F>
+void in_mode(bool lowmem, const F& f) {
+  if (lowmem)
+    f(std::false_type{});
+  else
+    f(std::true_type{});
 }
 
 // TF32 rounding of a float64: 10 mantissa bits after the leading one, to
@@ -211,21 +226,21 @@ void fb_replay_set_team(int T) { g_team = T; }
 // in place (0).
 void fb_replay_set_stages(int stages) { g_stages = stages; }
 
-long long fb_riccati_ws_floats(int N, int nx, int nu, int nc) {
-  return ric_layout(MpcDims{N, nx, nu, nc}).total;
+long long fb_riccati_ws_floats(int N, int nx, int nu, int nc, int lowmem) {
+  return ric_ws_floats(MpcDims{N, nx, nu, nc}, lowmem != 0, replay_stages());
 }
 
-int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
-                    float om_alpha, const float* sigma, const float* Q,
-                    const float* R, const float* S, const float* A,
-                    const float* Bm, const float* E, const float* L,
-                    const float* v, const float* y, const float* vbar,
-                    const float* rz, const float* rl, const float* rv,
-                    float* dz, float* dl, float* ws) {
+int fb_riccati_step(int N, int nx, int nu, int nc, int B, int lowmem,
+                    float alpha, float om_alpha, const float* sigma,
+                    const float* Q, const float* R, const float* S,
+                    const float* A, const float* Bm, const float* E,
+                    const float* L, const float* v, const float* y,
+                    const float* vbar, const float* rz, const float* rl,
+                    const float* rv, float* dz, float* dl, float* ws) {
   const MpcDims D{N, nx, nu, nc};
   const long long N1 = N + 1, ns = nx + nu;
-  const RicLayout o = ric_layout(D);
-  std::vector<float> stage(o.stage_floats);
+  std::vector<float> stage(ric_layout(D, lowmem != 0).stage_floats);
+  const long long wsf = fb_riccati_ws_floats(N, nx, nu, nc, lowmem);
   for (int b = 0; b < B; ++b) {
     MpcProb P{};
     P.Q = lane_im(Q, N1 * nx * nx, b);
@@ -235,29 +250,33 @@ int fb_riccati_step(int N, int nx, int nu, int nc, int B, float alpha,
     P.B = lane_im(Bm, (long long)N * nx * nu, b);
     P.E = lane_im(E, N1 * nc * nx, b);
     P.L = lane_im(L, N1 * nc * nu, b);
-    const Lane w = lane_im(ws, o.total, b);
-    on_team([&](const auto& tm) {
-      riccati_factor_solve(tm, D, sigma[b], alpha, om_alpha, P,
-                           lane_im(v, N1 * nc, b), lane_im(y, N1 * nc, b),
-                           lane_im(vbar, N1 * nc, b), lane_im(rz, N1 * ns, b),
-                           lane_im(rl, N1 * nx, b), lane_im(rv, N1 * nc, b),
-                           lane_im(dz, N1 * ns, b), lane_im(dl, N1 * nx, b),
-                           w, stage_block(tm, stage, w, D));
+    const Lane w = lane_im(ws, wsf, b);
+    in_mode(lowmem != 0, [&](auto store) {
+      on_team([&](const auto& tm) {
+        riccati_factor_solve<decltype(store)::value>(
+            tm, D, sigma[b], alpha, om_alpha, P, lane_im(v, N1 * nc, b),
+            lane_im(y, N1 * nc, b), lane_im(vbar, N1 * nc, b),
+            lane_im(rz, N1 * ns, b), lane_im(rl, N1 * nx, b),
+            lane_im(rv, N1 * nc, b), lane_im(dz, N1 * ns, b),
+            lane_im(dl, N1 * nx, b), w,
+            stage_block(tm, stage, w, D, lowmem != 0));
+      });
     });
   }
   return 0;
 }
 
-long long fb_solve_ws_floats(int N, int nx, int nu, int nc) {
-  return solve_layout(MpcDims{N, nx, nu, nc}).total;
+long long fb_solve_ws_floats(int N, int nx, int nu, int nc, int lowmem) {
+  return solve_layout(MpcDims{N, nx, nu, nc}, lowmem != 0, replay_stages())
+      .total;
 }
 
 long long fb_solve_smem_bytes(int N, int nx, int nu, int nc) {
   return solve_smem_bytes(MpcDims{N, nx, nu, nc});
 }
 
-int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
-                 const float* q, const float* r, const float* c,
+int fb_mpc_solve(int N, int nx, int nu, int nc, int B, int lowmem,
+                 SolveOpts o, const float* q, const float* r, const float* c,
                  const float* x0, const float* d, const float* Q,
                  const float* R, const float* S, const float* A,
                  const float* Bm, const float* E, const float* L,
@@ -266,8 +285,8 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
                  int* newton, int* prox, float* res0, float* ws) {
   const MpcDims D{N, nx, nu, nc};
   const long long N1 = N + 1;
-  const SolveLayout W = solve_layout(D);
-  std::vector<float> stage(ric_layout(D).stage_floats);
+  const SolveLayout W = solve_layout(D, lowmem != 0, replay_stages());
+  std::vector<float> stage(ric_layout(D, lowmem != 0).stage_floats);
   for (int b = 0; b < B; ++b) {
     const MpcProb P = mpc_prob_im(D, q, r, c, x0, d, Q, R, S, A, Bm, E, L, b);
     SolveOut out;
@@ -278,11 +297,15 @@ int fb_mpc_solve(int N, int nx, int nu, int nc, int B, SolveOpts o,
     out.prox = prox + b;
     out.res0 = res0 + b;
     const Lane w = lane_im(ws, W.total, b);
-    on_team([&](const auto& tm) {
-      fbstab_mpc_solve_lane(tm, D, o, P, lane_im(z0, N1 * (nx + nu), b),
-                            lane_im(l0, N1 * nx, b),
-                            lane_im(v0, N1 * nc, b), out, w.at(W.step),
-                            Lane{stage.data(), 1}, w.at(W.xk));
+    in_mode(lowmem != 0, [&](auto store) {
+      on_team([&](const auto& tm) {
+        fbstab_mpc_solve_lane<decltype(store)::value>(
+            tm, D, o, P, lane_im(z0, N1 * (nx + nu), b),
+            lane_im(l0, N1 * nx, b), lane_im(v0, N1 * nc, b), out,
+            w.at(W.step),
+            stage_block(tm, stage, w.at(W.step), D, lowmem != 0),
+            w.at(W.xk));
+      });
     });
   }
   return 0;
@@ -328,38 +351,44 @@ int fb_dense_solve(int n, int q, int nl, int B, SolveOpts o, const float* H,
   return 0;
 }
 
-long long fb_subproblem_ws_floats(int N, int nx, int nu, int nc) {
-  return subproblem_ws_floats(MpcDims{N, nx, nu, nc});
+long long fb_subproblem_ws_floats(int N, int nx, int nu, int nc,
+                                  int lowmem) {
+  return subproblem_ws_floats(MpcDims{N, nx, nu, nc}, lowmem != 0,
+                              replay_stages());
 }
 
 long long fb_subproblem_smem_bytes(int N, int nx, int nu, int nc) {
   return subproblem_smem_bytes(MpcDims{N, nx, nu, nc});
 }
 
-int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, SolveOpts o,
-                      const float* q, const float* r, const float* c,
-                      const float* x0, const float* d, const float* Q,
-                      const float* R, const float* S, const float* A,
-                      const float* Bm, const float* E, const float* L,
-                      const float* zk, const float* lk, const float* vk,
-                      const float* yk, const float* itol_prev,
-                      const float* dxn_prev, const int* newton0,
-                      const int* done, float* z, float* l, float* v,
-                      float* y, float* Eo, int* newton, int* lfail,
-                      float* Ek, int* success, float* itol, float* dxn,
-                      float* ws) {
+int fb_mpc_subproblem(int N, int nx, int nu, int nc, int B, int lowmem,
+                      SolveOpts o, const float* q, const float* r,
+                      const float* c, const float* x0, const float* d,
+                      const float* Q, const float* R, const float* S,
+                      const float* A, const float* Bm, const float* E,
+                      const float* L, const float* zk, const float* lk,
+                      const float* vk, const float* yk,
+                      const float* itol_prev, const float* dxn_prev,
+                      const int* newton0, const int* done, float* z,
+                      float* l, float* v, float* y, float* Eo, int* newton,
+                      int* lfail, float* Ek, int* success, float* itol,
+                      float* dxn, float* ws) {
   const MpcDims D{N, nx, nu, nc};
-  std::vector<float> stage(ric_layout(D).stage_floats);
+  const long long wsf = fb_subproblem_ws_floats(N, nx, nu, nc, lowmem);
+  std::vector<float> stage(ric_layout(D, lowmem != 0).stage_floats);
   for (int b = 0; b < B; ++b) {
     const MpcProb P = mpc_prob_im(D, q, r, c, x0, d, Q, R, S, A, Bm, E, L, b);
+    const Lane w = lane_im(ws, wsf, b);
     OuterStep s;
-    on_team([&](const auto& tm) {
-      const OuterStep t = fbstab_mpc_subproblem_lane(
-          tm, D, o, P, mpc_vars_im(D, zk, lk, vk, yk, b),
-          mpc_vars_im(D, z, l, v, y, b), itol_prev[b], dxn_prev[b],
-          newton0[b], done[b] != 0, lane_im(ws, subproblem_ws_floats(D), b),
-          Lane{stage.data(), 1});
-      if (tm.rank() == 0) s = t;
+    in_mode(lowmem != 0, [&](auto store) {
+      on_team([&](const auto& tm) {
+        const OuterStep t = fbstab_mpc_subproblem_lane<decltype(store)::value>(
+            tm, D, o, P, mpc_vars_im(D, zk, lk, vk, yk, b),
+            mpc_vars_im(D, z, l, v, y, b), itol_prev[b], dxn_prev[b],
+            newton0[b], done[b] != 0, w,
+            stage_block(tm, stage, w, D, lowmem != 0));
+        if (tm.rank() == 0) s = t;
+      });
     });
     Eo[b] = s.Eo;
     newton[b] = s.newton;
