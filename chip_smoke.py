@@ -533,25 +533,23 @@ def k3_envelope(device):
                    fatal=False)
 
 
-def reset_launches():
-    from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
-    from fbstab_tpu_torch.ops.assoc_combine_cuda import combine_im
-    from fbstab_tpu_torch.ops.dense_solve_cuda import fbstab_dense_solve_fused
-    from fbstab_tpu_torch.ops.df_probe_cuda import df_probe
-    from fbstab_tpu_torch.ops.mpc_solve_cuda import fbstab_mpc_solve_fused
-    from fbstab_tpu_torch.ops.mpc_subproblem_cuda import mpc_subproblem_fused
-    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
-    kernels = dict(K1=riccati_newton_step_batched, K2=fbstab_mpc_solve_fused,
-                   K3=fbstab_dense_solve_fused, K4=mpc_subproblem_fused,
-                   K5=combine_im, P1_perlane=p1.cuda_perlane,
-                   P1_shared=p1.cuda_shared, P1_tc=p1.tc_shared, P3=df_probe)
-    # The recompute-factors kernels of K1, K2 and K4, counted apart.
-    counters = [(name, k, "launches") for name, k in kernels.items()] + [
-        (f"{name}_lowmem", kernels[name], "launches_lowmem")
-        for name in ("K1", "K2", "K4")]
-    for _, k, attr in counters:
-        setattr(k, attr, 0)
-    return lambda: {name: getattr(k, attr) for name, k, attr in counters}
+def launch_counter():
+    """A reader of the kernels' launches since this call, from the port's
+    counters (fbstab_tpu_torch/telemetry.py); the recompute-factors
+    kernels of K1, K2 and K4 are counted apart (`K1_lowmem`, ...)."""
+    from fbstab_tpu_torch import telemetry
+    names = dict(K1="k1", K2="k2", K3="k3", K4="k4", K5="k5",
+                 P1_perlane="mxu_perlane", P1_shared="mxu_shared",
+                 P1_tc="mxu_tc", P3="df_probe", K1_lowmem="k1_lowmem",
+                 K2_lowmem="k2_lowmem", K4_lowmem="k4_lowmem")
+    start = telemetry.counters()
+
+    def since():
+        now = telemetry.counters()
+        return {name: now.get(f"launch.{key}", 0)
+                - start.get(f"launch.{key}", 0)
+                for name, key in names.items()}
+    return since
 
 
 def drive(fn, reps=3):
@@ -585,7 +583,7 @@ def phase_main(B, device):
     opts = Options.single_precision()
     data = build_batch(B, **HEADLINE, device=device)
     guess = zeros_guess(data)
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), times = drive(
         lambda: solve_mpc_qp_batch(data, *guess, opts))
     n = counts()
@@ -612,20 +610,19 @@ def mpc_breakdown(data, z0, l0, v0, opts):
     from fbstab_tpu_torch.models.refine import refine_solution_mpc
     from fbstab_tpu_torch.models.scaling import (
         ruiz_mpc_scaling, solve_scaled_mpc)
-    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
 
     o = opts.validated()
     scal, t_ruiz = timed(lambda: ruiz_mpc_scaling(data))
     (x, core), t_solve = timed(lambda: solve_scaled_mpc(
         lambda d, z, l, v: _solve_mpc_qp_batch_raw(d, z, l, v, o), data,
         z0, l0, v0, o, scal=scal, skip_residual_rewrite=True))
-    n1 = riccati_newton_step_batched.launches
+    n1 = launch_counter()
     _, t_ref = timed(lambda: refine_solution_mpc(data, x, core, o,
                                                  scal=scal))
     fails = int((core.eflag == 6).sum())
     print(f"main breakdown (ms): ruiz {t_ruiz:.1f} | scaled solve (K2) "
           f"{t_solve:.1f} | refine {t_ref:.1f} "
-          f"({riccati_newton_step_batched.launches - n1} K1 launches) | "
+          f"({n1()['K1']} K1 launches) | "
           f"LINEAR_SOLVER_FAILED lanes before retry {fails}")
 
 
@@ -640,7 +637,7 @@ def phase_dense_main(B, device):
     opts = Options.single_precision()
     data = build_dense(B, DENSE["n"], DENSE["q"], 0, device)
     guess = dense_zeros(data)
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), times = drive(
         lambda: solve_dense_qp_batch(data, *guess, opts))
     n = counts()
@@ -676,7 +673,7 @@ def phase_adaptive(B, device, oneshot_qps):
     data = build_batch(B, **HEADLINE, device=device)
     guess = zeros_guess(data)
     phase1, P2 = 16, max(B // 8, 128)
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), times = drive(lambda: solve_mpc_qp_batch_adaptive_device(
         data, *guess, opts, phase1_newton_iters=phase1, phase2_size=P2))
     n = counts()
@@ -722,21 +719,21 @@ def phase_k4(B, device):
     from fbstab_tpu_torch.models.scaling import (
         apply_mpc_scaling, ruiz_mpc_scaling)
     from fbstab_tpu_torch.ops.mpc_subproblem_cuda import (
-        mpc_subproblem_fused, mpc_subproblem_plain)
+        mpc_subproblem_plain)
     from fbstab_tpu_torch.options import Options
 
     opts = Options.single_precision()
     data = build_copoly(B, device)
     data = apply_mpc_scaling(data, ruiz_mpc_scaling(data))
     guess = zeros_guess(data)
-    n0 = mpc_subproblem_fused.launches
+    n0 = launch_counter()
     ck, max_abs, ms, plain_ms, _ = compare_solver(
         "K4", fbstab_mpc_solve_subfused,
         lambda *a: fbstab_mpc_solve_subfused(
             *a, subproblem=mpc_subproblem_plain),
         data, guess, opts, f"equilibrated copoly N={COPOLY['N']}",
         reps=(1, 1), warm=False)
-    launches = (mpc_subproblem_fused.launches - n0) // 2   # per solve
+    launches = n0()["K4"] // 2   # per solve
     # Each launch reads the data and the center and writes the iterate.
     bound_ms, bound_by = mpc_solve_bound(
         B, *COPOLY.values(), ck.newton_iters.float().mean().item(),
@@ -829,7 +826,7 @@ def phase_copoly(B, device):
     data = build_copoly(B, device)
     guess = zeros_guess(data)
     o = opts.validated()
-    counts = reset_launches()
+    counts = launch_counter()
     scal, t_ruiz = timed(lambda: ruiz_mpc_scaling(data))
     (xs, cs), t_solve = timed(lambda: solve_scaled_mpc(
         lambda d, z, l, v: _solve_mpc_qp_batch_raw(d, z, l, v, o), data,
@@ -844,7 +841,7 @@ def phase_copoly(B, device):
           f"LINEAR_SOLVER_FAILED lanes before retry "
           f"{int((cs.eflag == 6).sum())}")
     torch.cuda.reset_peak_memory_stats()
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
     n = counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -935,7 +932,7 @@ def envelope_path(device, B, B_turns):
     if tier != 2:
         fail(f"envelope: {name} N={N} routes to tier {tier}, not K4")
     torch.cuda.reset_peak_memory_stats()
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
     n = counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -976,7 +973,7 @@ def envelope_path(device, B, B_turns):
         return timed(lambda: solve_scaled_mpc(
             solvers[tier_], d1, *g1, o, scal=scal1,
             skip_residual_rewrite=True))
-    counts = reset_launches()
+    counts = launch_counter()
     (_, c4), t4 = raw(2)
     n4 = counts()
     (_, c3), t3 = raw(3)
@@ -1035,7 +1032,7 @@ def envelope_plants(device, B):
         dims = mpc_dims(data)
         guess = zeros_guess(data)
         solve_mpc_qp_batch(data, *guess, opts)          # warm
-        counts = reset_launches()
+        counts = launch_counter()
         (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts))
         n = counts()
         res64 = mpc_f64_residual(data, x, opts.alpha)
@@ -1078,7 +1075,7 @@ def envelope_lowmem(device):
     data = _equilibrated(build_copoly(B, device))
     args = newton_step_args(data, opts)
     std = k1(*args)
-    counts = reset_launches()
+    counts = launch_counter()
     low = k1(*args, lowmem=True)
     paths["lowmem_k1"] = counts()
     plain = riccati_newton_step_plain(*args)
@@ -1120,7 +1117,7 @@ def envelope_lowmem(device):
     for key, kernel, kd, dd, solve, plain_solve, tag, one in cases:
         g = zeros_guess(dd)
         xs, cs = solve(dd, g, False)
-        counts = reset_launches()
+        counts = launch_counter()
         xl, cl = solve(dd, g, True)
         paths[f"lowmem_{key.lower()}"] = n = counts()
         same = (_bit_equal(xl, xs) and _bit_equal(
@@ -1177,7 +1174,7 @@ def envelope_corners(device):
     for key, name, dims, B, kernel, plain, entry in corners:
         data = _equilibrated(build_batch(B, **dims, device=device))
         guess = zeros_guess(data)
-        n0 = reset_launches()
+        n0 = launch_counter()
         ck, max_abs, ms, plain_ms, _ = compare_solver(
             key, kernel, plain, data, guess, opts,
             f"{name} N={dims['N']} nx={dims['nx']} nu={dims['nu']} "
@@ -1243,7 +1240,7 @@ def phase_longhorizon(device, Ns=(120, 240, 480), reps=5):
         _, nx, nu, nc = mpc_dims(data)
         z = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
         guess = (z((N + 1) * (nx + nu)), z((N + 1) * nx), z((N + 1) * nc))
-        counts = reset_launches()
+        counts = launch_counter()
         times = dict(scan=[], assoc=[])
         for i in range(reps + 1):
             fresh = data._replace(x0=data.x0 + 1e-6 * i)
@@ -1281,7 +1278,7 @@ def phase_assoc_batch(B, device):
     opts = Options.single_precision()
     data = build_copoly(B, device)
     guess = zeros_guess(data)
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), t = timed(lambda: solve_mpc_qp_batch(data, *guess, opts,
                                                     riccati="assoc"))
     n = counts()
@@ -1312,7 +1309,7 @@ def phase_p1(device):
     from fbstab_tpu_torch import bench
     from fbstab_tpu_torch.ops import mxu_probe_cuda as p1
 
-    counts = reset_launches()
+    counts = launch_counter()
     record, diag = bench.run_mxu(device=device)
     n = counts()
     print(f"P1: {diag}")
@@ -1417,7 +1414,7 @@ def phase_p3(device):
     from fbstab_tpu_torch.ops._build import library_path, load_library
     from fbstab_tpu_torch.tools import df_probe as tool
 
-    counts = reset_launches()
+    counts = launch_counter()
     verdict = tool.probe(device)
     n = counts()
     a, b = p3.probe_inputs(device)
@@ -1478,7 +1475,7 @@ def phase_warmstart(B, device, steps=8):
     opts = Options.single_precision()
     dataB = build_batch(B, **HEADLINE, device=device)
     shared = MpcQPData(*(a[:1] for a in dataB))
-    counts = reset_launches()
+    counts = launch_counter()
     res, t = timed(lambda: simulate_batch(shared, steps, dataB.x0, opts))
     n = counts()
     good = res.eflag == 0
@@ -1542,10 +1539,10 @@ def diff_grads(solve, data, guess):
     """(gradients by field, z, forward s, backward s, forward launches,
     backward launches) of 0.5 |z|^2 through solve(data, *guess)."""
     leaves = _leaves(data)
-    counts = reset_launches()
+    counts = launch_counter()
     (z, _, _), t_fwd = timed(lambda: solve(leaves, *guess))
     n_fwd = counts()
-    counts = reset_launches()
+    counts = launch_counter()
     _, t_bwd = timed(lambda: (0.5 * (z * z).sum()).backward())
     n_bwd = counts()
     grads = {k: a.grad for k, a in zip(data._fields, leaves)}
@@ -1669,10 +1666,10 @@ def phase_feedback_gain(B, device):
         pick = lambda d: type(d)(*(a[lane:lane + 1].contiguous() for a in d))
         one, one64 = pick(data), pick(data64)
         exact_f32_matmul(one.x0)
-        counts = reset_launches()
+        counts = launch_counter()
         _, core = fbstab_solve_batch(MPC_OPS, one, *zeros_guess(one), opts)
         n_solve = counts()["K1"]
-        counts = reset_launches()
+        counts = launch_counter()
         K32, t32 = timed(lambda: mpc_feedback_gain(one, opts))
         gain_counts = counts()
         n_gain = gain_counts["K1"]
@@ -1753,7 +1750,7 @@ def phase_facade(B, Bd, device):
     rows, paths = [], {}
 
     def call(tag, solver, d):
-        counts = reset_launches()
+        counts = launch_counter()
         x, out, stats = solver.solve(d)
         n = counts()
         res64 = mpc_f64_residual(d, x, alpha)
@@ -1791,7 +1788,7 @@ def phase_facade(B, Bd, device):
     solver.update_options(dataclasses.replace(
         Options.single_precision(), display_level=Display.FINAL))
     sink = Capture()
-    counts = reset_launches()
+    counts = launch_counter()
     xd, outd, statsd = solver.solve(dense, stream=sink)
     n = counts()
     paths["dense"] = n
@@ -1828,7 +1825,7 @@ def phase_refine_unrolled(data, device, steps=3):
     x, _ = solve_mpc_qp_batch(data, *zeros_guess(data),
                               dataclasses.replace(opts, refine_steps=0))
     sdata, scal = equilibrate_mpc(data)
-    counts = reset_launches()
+    counts = launch_counter()
     (refined, hist), ms = timed(lambda: refine_mpc_batch(
         sdata, scale_mpc_variable(x, scal), opts, steps=steps))
     n = counts()
@@ -1881,7 +1878,7 @@ def phase_sparse(device, B=32, B_mpc=256, B_diff=8):
     solve = lambda: solve_sparse_qp_batch(pat, data, *guess, opts)
     solve()
     pat.split.reset()
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core), ms = timed(solve)
     n_bench = counts()
     split = dataclasses.asdict(pat.split)
@@ -1928,7 +1925,7 @@ def phase_sparse(device, B=32, B_mpc=256, B_diff=8):
     vals = mpc_sparse_values(mpc)
     mopts = Options(abs_tol=1e-9)
     mpat.split.reset()
-    counts = reset_launches()
+    counts = launch_counter()
     (xs, cs), ms_s = timed(lambda: solve_sparse_qp_batch(
         mpat, vals, *zeros(mpat, B_mpc), mopts))
     n_mpc = counts()
@@ -1965,7 +1962,7 @@ def phase_sparse(device, B=32, B_mpc=256, B_diff=8):
                                                  fields)}, z.detach().cpu()
 
     sub = SparseQPData(*(t[:B_diff] for t in data))
-    counts = reset_launches()
+    counts = launch_counter()
     (g_card, z_card), ms_d = timed(lambda: grads(sub, device))
     n_diff = counts()
     g_cpu, _ = grads(SparseQPData(*(t.cpu() for t in sub)), "cpu")
@@ -2020,7 +2017,7 @@ def phase_sharded(device, B=8192, B_lock=1024, B_dense=4096):
     rows, paths = {}, {}
 
     def run(tag, solver, a, Bq, reps=3):
-        counts = reset_launches()
+        counts = launch_counter()
         (x, core, stats), times = drive(lambda: solver(*a), reps=reps)
         n = counts()
         _check_stats(f"sharded {tag}", stats, core)
@@ -2092,7 +2089,7 @@ def phase_sharded(device, B=8192, B_lock=1024, B_dense=4096):
     Br = B - 1
     dr = build_batch(Br, **HEADLINE, device=device)
     gr = zeros_guess(dr)
-    counts = reset_launches()
+    counts = launch_counter()
     (x, core, stats), ms = timed(lambda: solve_mpc_ragged(
         dr, *gr, opts, mesh=mesh, tile_b=128))
     n = counts()
@@ -2109,11 +2106,11 @@ def phase_sharded(device, B=8192, B_lock=1024, B_dense=4096):
     if n["K2"] < 1:
         fail("sharded ragged: K2 did not launch")
 
-    counts = reset_launches()
+    counts = launch_counter()
     _, ms = timed(lambda: dryrun_multichip(1))
     paths["sharded_dryrun"] = counts()
     rows["dryrun"] = dict(ms=ms, launches=paths["sharded_dryrun"])
-    counts = reset_launches()
+    counts = launch_counter()
     rec, diag = run_sharded(B, device)
     paths["bench_sharded"] = counts()
     print(diag)

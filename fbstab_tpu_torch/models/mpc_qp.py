@@ -35,6 +35,7 @@ from fbstab_tpu_torch.ops.pfb import pfb_weights
 from fbstab_tpu_torch.ops.smallchol import cholesky, solve_triangular_small
 from fbstab_tpu_torch.options import Display, Options
 from fbstab_tpu_torch.solver_out import ExitFlag, SolverOut
+from fbstab_tpu_torch.telemetry import count, span
 
 _tri = solve_triangular_small
 
@@ -711,25 +712,26 @@ def _solve_mpc_qp_batch_raw(data: MpcQPData, z0, l0, v0, options: Options,
     float32 and the plain recursion elsewhere; each kernel in the mode of
     riccati_mode. riccati="assoc" runs the
     lockstep solver on the associative Riccati step (K5 on the card)."""
-    if riccati == "assoc":
+    with span("fbstab.solve", z0):
+        if riccati == "assoc":
+            exact_f32_matmul(z0)
+            return fbstab_solve_batch(MPC_OPS_ASSOC, data, z0, l0, v0, options)
+        dims = mpc_dims(data)
+        tier = mpc_solve_tier(dims, z0.dtype, z0.device)
+        lowmem = tier < 3 and riccati_mode(dims, z0.shape[0],
+                                           z0.device) == "lowmem"
+        if tier == 1:
+            from fbstab_tpu_torch.ops.mpc_solve_cuda import (
+                fbstab_mpc_solve_fused)
+            return fbstab_mpc_solve_fused(data, z0, l0, v0, options,
+                                          lowmem=lowmem)
+        if tier == 2:
+            from fbstab_tpu_torch.models.mpc_subfused import (
+                fbstab_mpc_solve_subfused)
+            return fbstab_mpc_solve_subfused(data, z0, l0, v0, options,
+                                             lowmem=lowmem)
         exact_f32_matmul(z0)
-        return fbstab_solve_batch(MPC_OPS_ASSOC, data, z0, l0, v0, options)
-    dims = mpc_dims(data)
-    tier = mpc_solve_tier(dims, z0.dtype, z0.device)
-    lowmem = tier < 3 and riccati_mode(dims, z0.shape[0],
-                                       z0.device) == "lowmem"
-    if tier == 1:
-        from fbstab_tpu_torch.ops.mpc_solve_cuda import (
-            fbstab_mpc_solve_fused)
-        return fbstab_mpc_solve_fused(data, z0, l0, v0, options,
-                                      lowmem=lowmem)
-    if tier == 2:
-        from fbstab_tpu_torch.models.mpc_subfused import (
-            fbstab_mpc_solve_subfused)
-        return fbstab_mpc_solve_subfused(data, z0, l0, v0, options,
-                                         lowmem=lowmem)
-    exact_f32_matmul(z0)
-    return fbstab_solve_batch(MPC_OPS, data, z0, l0, v0, options)
+        return fbstab_solve_batch(MPC_OPS, data, z0, l0, v0, options)
 
 
 def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
@@ -755,44 +757,51 @@ def solve_mpc_qp_batch(data: MpcQPData, z0, l0, v0,
     if riccati not in ("auto", "scan", "assoc"):
         raise ValueError(f"riccati must be 'auto', 'scan' or 'assoc', got "
                          f"{riccati!r}")
-    if riccati == "auto":
-        riccati = _auto_batch_riccati(data, z0.dtype, z0.device)
-    opts = options.validated()
-    from fbstab_tpu_torch.models.refine import (
-        refine_engaged, refine_solution_mpc)
-    from fbstab_tpu_torch.models.scaling import (
-        merge_failed_retry, retry_options, ruiz_mpc_scaling,
-        scaling_engaged, solve_scaled_mpc)
+    with span("fbstab.mpc_batch", z0):
+        if riccati == "auto":
+            riccati = _auto_batch_riccati(data, z0.dtype, z0.device)
+        opts = options.validated()
+        from fbstab_tpu_torch.models.refine import (
+            refine_engaged, refine_solution_mpc)
+        from fbstab_tpu_torch.models.scaling import (
+            merge_failed_retry, retry_options, ruiz_mpc_scaling,
+            scaling_engaged, solve_scaled_mpc)
 
-    if scaling is None:
-        opts = gate_mpc_options(data, z0.dtype, opts)
+        if scaling is None:
+            opts = gate_mpc_options(data, z0.dtype, opts)
 
-    scal = scaling
-    if scal is None and scaling_engaged(opts, z0.dtype):
-        scal = ruiz_mpc_scaling(data)
+        scal = scaling
+        if scal is None and scaling_engaged(opts, z0.dtype):
+            with span("fbstab.scaling"):
+                scal = ruiz_mpc_scaling(data)
 
-    will_refine = refine_engaged(opts, z0.dtype)
+        will_refine = refine_engaged(opts, z0.dtype)
 
-    def scaled_solve(o, z, l, v):
-        return solve_scaled_mpc(
-            lambda dd, zz, ll, vv: _solve_mpc_qp_batch_raw(
-                dd, zz, ll, vv, o, riccati), data, z, l, v, o, scal=scal,
-            skip_residual_rewrite=will_refine)
+        def scaled_solve(o, z, l, v):
+            return solve_scaled_mpc(
+                lambda dd, zz, ll, vv: _solve_mpc_qp_batch_raw(
+                    dd, zz, ll, vv, o, riccati), data, z, l, v, o,
+                scal=scal, skip_residual_rewrite=will_refine)
 
-    x, core = scaled_solve(opts, z0, l0, v0)
-    if opts.retry_failed and z0.dtype == torch.float32:
-        fail = core.eflag == int(ExitFlag.LINEAR_SOLVER_FAILED)
-        if bool(fail.any()):
-            # Failed lanes restart from the caller's guess; the others
-            # re-enter at their solution and exit immediately.
-            m = fail[:, None]
-            x2, core2 = scaled_solve(
-                retry_options(opts), torch.where(m, z0, x.z),
-                torch.where(m, l0, x.l), torch.where(m, v0, x.v))
-            x, core = merge_failed_retry(x, core, x2, core2)
-    if will_refine:
-        return refine_solution_mpc(data, x, core, opts, scal=scal)
-    return x, core
+        x, core = scaled_solve(opts, z0, l0, v0)
+        if opts.retry_failed and z0.dtype == torch.float32:
+            with span("fbstab.retry"):
+                fail = core.eflag == int(ExitFlag.LINEAR_SOLVER_FAILED)
+                with span("fbstab.sync.retry_any"):
+                    count("host_sync.retry_any")
+                    failed = int(fail.sum())
+                if failed:
+                    count("retry.lanes", failed)
+                    # Failed lanes restart from the caller's guess; the
+                    # others re-enter at their solution and exit at once.
+                    m = fail[:, None]
+                    x2, core2 = scaled_solve(
+                        retry_options(opts), torch.where(m, z0, x.z),
+                        torch.where(m, l0, x.l), torch.where(m, v0, x.v))
+                    x, core = merge_failed_retry(x, core, x2, core2)
+        if will_refine:
+            return refine_solution_mpc(data, x, core, opts, scal=scal)
+        return x, core
 
 
 # ------------------------------------------------------------------

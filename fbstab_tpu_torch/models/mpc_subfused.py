@@ -26,6 +26,7 @@ from fbstab_tpu_torch.core.feasibility import check_feasibility
 from fbstab_tpu_torch.core.variable import Variable, select_var, var_norm
 from fbstab_tpu_torch.options import Options
 from fbstab_tpu_torch.solver_out import ExitFlag
+from fbstab_tpu_torch.telemetry import count, span
 
 
 def fbstab_mpc_solve_subfused(data, z0, l0, v0, options: Options,
@@ -68,61 +69,68 @@ def fbstab_mpc_solve_subfused(data, z0, l0, v0, options: Options,
 
     for _ in range(opts.max_prox_iters):
         lane = ~done
-        if not bool(lane.any()):
-            break
-        (xi, Eo, n_iters, lin_fail, Ek_it, success, itol,
-         dxn_it) = subproblem(prep, xk, inner_tol, dxn, newton, ~lane, opts)
+        with span("fbstab.sync.k4_any_lane"):
+            count("host_sync.k4_any_lane")
+            if not bool(lane.any()):
+                break
+        count("k4.outer_iters")
+        with span("fbstab.k4.launch"):
+            (xi, Eo, n_iters, lin_fail, Ek_it, success, itol,
+             dxn_it) = subproblem(prep, xk, inner_tol, dxn, newton, ~lane,
+                                  opts)
 
-        # dx <- xi - xk with the margin identity (impl.h:201-203).
-        dx = Variable(z=xi.z - xk.z, l=xi.l - xk.l, v=xi.v - xk.v,
-                      y=xi.y - xk.y + b_vec)
-        exhausted = n_iters >= opts.max_newton_iters
-        x_budget = select_var(Eo < Ek_it, xi, xk)
-        res_budget = _pnr_norm(ops, data, x_budget, alpha)
+        with span("fbstab.k4.exits"):
+            # dx <- xi - xk with the margin identity (impl.h:201-203).
+            dx = Variable(z=xi.z - xk.z, l=xi.l - xk.l, v=xi.v - xk.v,
+                          y=xi.y - xk.y + b_vec)
+            exhausted = n_iters >= opts.max_newton_iters
+            x_budget = select_var(Eo < Ek_it, xi, xk)
+            res_budget = _pnr_norm(ops, data, x_budget, alpha)
 
-        if opts.check_feasibility:
-            feas = check_feasibility(ops, data, dx, opts.infeas_tol)
-            p_inf = ~feas.primal_feasible
-            d_inf = ~feas.dual_feasible
-        else:
-            p_inf = torch.zeros_like(done)
-            d_inf = torch.zeros_like(done)
-        infeasible = p_inf | d_inf
-        eflag_infeas = torch.where(
-            p_inf & d_inf, flag(ExitFlag.PRIMAL_DUAL_INFEASIBLE),
-            torch.where(p_inf, flag(ExitFlag.PRIMAL_INFEASIBLE),
-                        flag(ExitFlag.DUAL_INFEASIBLE)))
+            if opts.check_feasibility:
+                feas = check_feasibility(ops, data, dx, opts.infeas_tol)
+                p_inf = ~feas.primal_feasible
+                d_inf = ~feas.dual_feasible
+            else:
+                p_inf = torch.zeros_like(done)
+                d_inf = torch.zeros_like(done)
+            infeasible = p_inf | d_inf
+            eflag_infeas = torch.where(
+                p_inf & d_inf, flag(ExitFlag.PRIMAL_DUAL_INFEASIBLE),
+                torch.where(p_inf, flag(ExitFlag.PRIMAL_INFEASIBLE),
+                            flag(ExitFlag.DUAL_INFEASIBLE)))
 
-        # Priority: success > linear solver failure > newton budget >
-        # infeasibility > continue.
-        done_it = success | lin_fail | exhausted | infeasible
-        eflag_it = torch.where(
-            success, flag(ExitFlag.SUCCESS),
-            torch.where(lin_fail, flag(ExitFlag.LINEAR_SOLVER_FAILED),
-                        torch.where(exhausted, flag(ExitFlag.MAXITERATIONS),
-                                    torch.where(infeasible, eflag_infeas,
-                                                eflag))))
-        out_x_it = select_var(
-            success | lin_fail, xk,
-            select_var(exhausted, x_budget,
-                       select_var(infeasible, dx, out_x)))
-        out_res_it = torch.where(
-            success | lin_fail, Ek_it,
-            torch.where(exhausted, res_budget,
-                        torch.where(infeasible, Ek_it, out_res)))
-        cont = ~done_it
+            # Priority: success > linear solver failure > newton budget >
+            # infeasibility > continue.
+            done_it = success | lin_fail | exhausted | infeasible
+            eflag_it = torch.where(
+                success, flag(ExitFlag.SUCCESS),
+                torch.where(
+                    lin_fail, flag(ExitFlag.LINEAR_SOLVER_FAILED),
+                    torch.where(exhausted, flag(ExitFlag.MAXITERATIONS),
+                                torch.where(infeasible, eflag_infeas,
+                                            eflag))))
+            out_x_it = select_var(
+                success | lin_fail, xk,
+                select_var(exhausted, x_budget,
+                           select_var(infeasible, dx, out_x)))
+            out_res_it = torch.where(
+                success | lin_fail, Ek_it,
+                torch.where(exhausted, res_budget,
+                            torch.where(infeasible, Ek_it, out_res)))
+            cont = ~done_it
 
-        # Commit the iteration on the lanes whose outer loop ran.
-        xk = select_var(lane & cont, xi, xk)
-        prox = torch.where(lane & cont, prox + 1, prox)
-        dxn = torch.where(lane, dxn_it, dxn)
-        inner_tol = torch.where(lane, itol, inner_tol)
-        Ek = torch.where(lane, Ek_it, Ek)
-        newton = torch.where(lane, n_iters, newton)
-        eflag = torch.where(lane, eflag_it, eflag)
-        out_x = select_var(lane, out_x_it, out_x)
-        out_res = torch.where(lane, out_res_it, out_res)
-        done = done | (lane & done_it)
+            # Commit the iteration on the lanes whose outer loop ran.
+            xk = select_var(lane & cont, xi, xk)
+            prox = torch.where(lane & cont, prox + 1, prox)
+            dxn = torch.where(lane, dxn_it, dxn)
+            inner_tol = torch.where(lane, itol, inner_tol)
+            Ek = torch.where(lane, Ek_it, Ek)
+            newton = torch.where(lane, n_iters, newton)
+            eflag = torch.where(lane, eflag_it, eflag)
+            out_x = select_var(lane, out_x_it, out_x)
+            out_res = torch.where(lane, out_res_it, out_res)
+            done = done | (lane & done_it)
 
     # Proximal budget exhausted (impl.h:219-223): xk with the last Ek.
     out_x = select_var(done, out_x, xk)

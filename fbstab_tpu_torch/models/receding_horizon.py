@@ -28,6 +28,7 @@ from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.models.mpc_qp import (
     MPC_OPS, MpcQPData, exact_f32_matmul, mpc_dims)
 from fbstab_tpu_torch.options import Options
+from fbstab_tpu_torch.telemetry import span
 
 
 def shift_warmstart(x: Variable, data: MpcQPData) -> Variable:
@@ -44,9 +45,10 @@ def shift_warmstart(x: Variable, data: MpcQPData) -> Variable:
         s = a.reshape(B, N + 1, n)
         return torch.cat([s[:, 1:], s[:, -1:]], 1).reshape(B, -1)
 
-    z = shift(x.z, nx + nu)
-    return Variable(z=z, l=shift(x.l, nx), v=shift(x.v, nc),
-                    y=MPC_OPS.b_vec(data) - MPC_OPS.gemvA(data, z))
+    with span("fbstab.shift_warmstart", x.z):
+        z = shift(x.z, nx + nu)
+        return Variable(z=z, l=shift(x.l, nx), v=shift(x.v, nc),
+                        y=MPC_OPS.b_vec(data) - MPC_OPS.gemvA(data, z))
 
 
 class ClosedLoopResult(NamedTuple):

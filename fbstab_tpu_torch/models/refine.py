@@ -41,6 +41,7 @@ from fbstab_tpu_torch.ops.doublefloat import (
 )
 from fbstab_tpu_torch.options import Options
 from fbstab_tpu_torch.solver_out import ExitFlag
+from fbstab_tpu_torch.telemetry import count, span
 
 
 class VariableDF(NamedTuple):
@@ -303,9 +304,10 @@ def _refine_mpc_step(data, carry, opts: Options, scal):
     rz_flat = torch.cat([rzx, rzu], -1).reshape(B, -1)
     vh = df_to(v).reshape(B, -1)
     yh = df_to(y).reshape(B, -1)
-    dz, dl, dv, _, ok = mpc_newton_step(
-        data, vh, yh, vh, -rz_flat, -rl.reshape(B, -1), -rv.reshape(B, -1),
-        sig, opts.alpha)
+    with span("fbstab.refine.k1"):
+        dz, dl, dv, _, ok = mpc_newton_step(
+            data, vh, yh, vh, -rz_flat, -rl.reshape(B, -1),
+            -rv.reshape(B, -1), sig, opts.alpha)
     # Damped step; the walk window decides what the lane keeps.
     tm = (t * (live & ok).to(dtype))[:, None, None]
     dzs = dz.reshape(B, N1, nx + nu)
@@ -314,12 +316,13 @@ def _refine_mpc_step(data, carry, opts: Options, scal):
     zu_p = addf(zu, dzs[..., nx:])
     l_p = addf(l, _stages(dl, N1, nx))
     v_p = df_max0(addf(v, _stages(dv, N1, nc)))
-    y_p = _margin(data, zx_p, zu_p)
-    blocks_p = _mpc_kkt_residual_df(data, zx_p, zu_p, l_p, v_p, y_p,
-                                    opts.alpha)
-    res_p = _mpc_norms(opts.alpha, scal, zx_p, zu_p, l_p, v_p, y_p,
-                       *blocks_p[:3])
-    rhs_p = tuple(df_to(b) for b in blocks_p)
+    with span("fbstab.refine.residual"):
+        y_p = _margin(data, zx_p, zu_p)
+        blocks_p = _mpc_kkt_residual_df(data, zx_p, zu_p, l_p, v_p, y_p,
+                                        opts.alpha)
+        res_p = _mpc_norms(opts.alpha, scal, zx_p, zu_p, l_p, v_p, y_p,
+                           *blocks_p[:3])
+        rhs_p = tuple(df_to(b) for b in blocks_p)
     return _walk_update(B, live, ok, res_p, res_best, since, t, sig,
                         (zx_p, zu_p, l_p, v_p, y_p), cur, bst, rhs_p, rhs_c,
                         rhs_b)
@@ -363,19 +366,35 @@ def _refine_loop(step, data, state0, rhs0, res0, options: Options, good,
     steps = torch.zeros(C, dtype=torch.int32, device=dev)
     for _ in range(opts.refine_steps):
         res_best, live = carry[4], carry[5]
-        pending = torch.where(live, res_best, torch.zeros_like(res_best))
-        run_chunk = pending.reshape(C, ck).amax(1) > opts.refine_target
-        if not bool(run_chunk.any()):
-            break
+        with span("fbstab.sync.refine_exit"):
+            pending = torch.where(live, res_best, torch.zeros_like(res_best))
+            run_chunk = pending.reshape(C, ck).amax(1) > opts.refine_target
+            # One read: the chunks still running (the exit test) and the
+            # live lanes above the target (the useful share of the step).
+            count("host_sync.refine_exit")
+            running, above = torch.stack((
+                run_chunk.sum(),
+                (pending > opts.refine_target).sum())).tolist()
+            if running == 0:
+                break
         steps = steps + run_chunk.to(torch.int32)
-        run = run_chunk.repeat_interleave(ck)
-        if bool(run.all()):
-            carry = step(data, carry, opts, scal)
+        count("refine.steps")
+        count("refine.lanes_pending", above)
+        if running == C:
+            count("refine.lanes_stepped", B)
+            with span("fbstab.refine.step"):
+                carry = step(data, carry, opts, scal)
         else:
-            idx = run.nonzero()[:, 0]
-            sub_scal = None if scal is None else _take(scal, idx)
-            sub = step(_take(data, idx), _take(carry, idx), opts, sub_scal)
-            carry = _put(carry, idx, sub)
+            with span("fbstab.refine.gather"):
+                count("host_sync.refine_gather")
+                idx = run_chunk.repeat_interleave(ck).nonzero()[:, 0]
+                sub_scal = None if scal is None else _take(scal, idx)
+                sub_data, sub_carry = _take(data, idx), _take(carry, idx)
+            count("refine.lanes_stepped", idx.shape[0])
+            with span("fbstab.refine.step"):
+                sub = step(sub_data, sub_carry, opts, sub_scal)
+            with span("fbstab.refine.gather"):
+                carry = _put(carry, idx, sub)
     return carry[1], carry[4], steps.repeat_interleave(ck)
 
 
@@ -449,33 +468,40 @@ def refine_solution_mpc(data: MpcQPData, x: Variable, core,
     rewrites the CoreOut (see _finish_refine). With Options.equilibrate
     the corrections run on the Ruiz-equilibrated problem (pass the
     solve's own MpcScaling as `scal` to skip recomputing it)."""
-    opts = options.validated()
-    good = core.eflag == int(ExitFlag.SUCCESS)
-    B = x.z.shape[0]
-    N, nx, nu, nc = mpc_dims(data)
-    rows = (N + 1) * (nx + nu + nx + 2 * nc)
-    if opts.equilibrate:
-        from fbstab_tpu_torch.models.scaling import (
-            apply_mpc_scaling, ruiz_mpc_scaling, scale_mpc_variable,
-            unscale_mpc_variable_df)
-        if scal is None:
-            scal = ruiz_mpc_scaling(data)
-        sdata = apply_mpc_scaling(data, scal)
-        xs = scale_mpc_variable(x, scal)
-        state0, blocks0, res0 = _mpc_refine_entry(sdata, xs, opts, scal)
-        rhs0 = tuple(df_to(b) for b in blocks0)
-        refined_s, res, steps = _chunked_refine(
-            lambda ck: _refine_mpc_loop(sdata, state0, rhs0, res0, opts,
-                                        good, scal, ck), B, rows=rows)
-        refined = unscale_mpc_variable_df(refined_s, scal)
-    else:
-        state0, blocks0, res0 = _mpc_refine_entry(data, x, opts)
-        rhs0 = tuple(df_to(b) for b in blocks0)
-        refined, res, steps = _chunked_refine(
-            lambda ck: _refine_mpc_loop(data, state0, rhs0, res0, opts,
-                                        good, None, ck), B, rows=rows)
-    res = _pnr_df_at_mpc(data, refined, opts.alpha)
-    return _finish_refine(refined, x, core, good, res0, res, steps)
+    with span("fbstab.refine", x.z):
+        opts = options.validated()
+        good = core.eflag == int(ExitFlag.SUCCESS)
+        B = x.z.shape[0]
+        N, nx, nu, nc = mpc_dims(data)
+        rows = (N + 1) * (nx + nu + nx + 2 * nc)
+        if opts.equilibrate:
+            from fbstab_tpu_torch.models.scaling import (
+                apply_mpc_scaling, ruiz_mpc_scaling, scale_mpc_variable,
+                unscale_mpc_variable_df)
+            with span("fbstab.scaling"):
+                if scal is None:
+                    scal = ruiz_mpc_scaling(data)
+                sdata = apply_mpc_scaling(data, scal)
+                xs = scale_mpc_variable(x, scal)
+            with span("fbstab.refine.entry"):
+                state0, blocks0, res0 = _mpc_refine_entry(sdata, xs, opts,
+                                                          scal)
+                rhs0 = tuple(df_to(b) for b in blocks0)
+            refined_s, res, steps = _chunked_refine(
+                lambda ck: _refine_mpc_loop(sdata, state0, rhs0, res0, opts,
+                                            good, scal, ck), B, rows=rows)
+            with span("fbstab.scaling"):
+                refined = unscale_mpc_variable_df(refined_s, scal)
+        else:
+            with span("fbstab.refine.entry"):
+                state0, blocks0, res0 = _mpc_refine_entry(data, x, opts)
+                rhs0 = tuple(df_to(b) for b in blocks0)
+            refined, res, steps = _chunked_refine(
+                lambda ck: _refine_mpc_loop(data, state0, rhs0, res0, opts,
+                                            good, None, ck), B, rows=rows)
+        with span("fbstab.refine.final"):
+            res = _pnr_df_at_mpc(data, refined, opts.alpha)
+            return _finish_refine(refined, x, core, good, res0, res, steps)
 
 
 # ------------------------------------------------------------------

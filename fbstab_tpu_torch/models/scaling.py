@@ -32,6 +32,7 @@ from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.models.dense_qp import DENSE_OPS, DenseQPData
 from fbstab_tpu_torch.models.mpc_qp import MPC_OPS, MpcQPData
 from fbstab_tpu_torch.solver_out import ExitFlag
+from fbstab_tpu_torch.telemetry import span
 
 RUIZ_ITERS = 8
 
@@ -282,13 +283,15 @@ def solve_scaled_mpc(raw_solve, data, z0, l0, v0, options, scal=None,
     opts = options.validated()
     if not scaling_engaged(opts, z0.dtype):
         return raw_solve(data, z0, l0, v0)
-    if scal is None:
-        scal = ruiz_mpc_scaling(data)
-    sdata = apply_mpc_scaling(data, scal)
-    g = scale_mpc_variable(
-        Variable(z=z0, l=l0, v=v0, y=torch.zeros_like(v0)), scal)
+    with span("fbstab.scaling", z0):
+        if scal is None:
+            scal = ruiz_mpc_scaling(data)
+        sdata = apply_mpc_scaling(data, scal)
+        g = scale_mpc_variable(
+            Variable(z=z0, l=l0, v=v0, y=torch.zeros_like(v0)), scal)
     x, core = raw_solve(sdata, g.z, g.l, g.v)
-    x = unscale_mpc_variable(x, scal)
+    with span("fbstab.scaling", z0):
+        x = unscale_mpc_variable(x, scal)
     if skip_residual_rewrite:
         return x, core
     res = residual_norm(penalized_natural_residual(MPC_OPS, data, x,

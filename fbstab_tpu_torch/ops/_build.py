@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from fbstab_tpu_torch import telemetry
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -211,10 +213,11 @@ def bind_df_probe(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Builds (once per source hash) and loads the kernel library."""
-    path = library_path()
-    if not path.exists():
-        _compile(path)
-    return _bind(ctypes.CDLL(str(path)))
+    with telemetry.span("fbstab.load_library"):
+        path = library_path()
+        if not path.exists():
+            _compile(path)
+        return _bind(ctypes.CDLL(str(path)))
 
 
 def build_variant(source: str, defines: tuple = ()) -> Path:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from fbstab_tpu_torch import telemetry
 from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.ops.mpc_solve_cuda import solve_opts
@@ -99,8 +100,6 @@ def fbstab_dense_solve_fused(data, z0, l0, v0, options: Options):
     lib = load_library()
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     out = launch_dense_solve(lib, data, z0, l0, v0, options, stream)
-    fbstab_dense_solve_fused.launches += 1
+    telemetry.count("launch.k3")
     return out
 
-
-fbstab_dense_solve_fused.launches = 0

@@ -20,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from fbstab_tpu_torch import telemetry
 from fbstab_tpu_torch.ops.doublefloat import two_prod, two_sum
 
 R, C = 8, 128
@@ -90,11 +91,9 @@ def df_probe(a, b):
         return df_probe_plain(a, b)
     from fbstab_tpu_torch.ops._build import load_library
     out = launch_df_probe(load_library(), a, b)
-    df_probe.launches += 1
+    telemetry.count("launch.df_probe")
     return out
 
-
-df_probe.launches = 0
 
 
 def exactness(a, b, out):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from fbstab_tpu_torch import telemetry
 from fbstab_tpu_torch.core.algorithm import CoreOut
 from fbstab_tpu_torch.core.variable import Variable
 from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
@@ -110,8 +111,8 @@ def fbstab_mpc_solve_fused(data, z0, l0, v0, options: Options,
     plain version; CUDA float32 tensors launch K2, in the recompute-factors
     mode with `lowmem` (the JAX signature's; the batch dispatch picks it
     with models.mpc_qp.riccati_mode). Counts the standard kernel's
-    launches in `.launches`, the recompute-factors kernel's in
-    `.launches_lowmem`."""
+    launches as `launch.k2`, the recompute-factors kernel's as
+    `launch.k2_lowmem` (telemetry.counters())."""
     if z0.device.type == "cpu":
         return fbstab_mpc_solve_plain(data, z0, l0, v0, options)
     if not z0.is_cuda:
@@ -120,12 +121,6 @@ def fbstab_mpc_solve_fused(data, z0, l0, v0, options: Options,
     lib = load_library()
     stream = torch.cuda.current_stream(z0.device).cuda_stream
     out = launch_mpc_solve(lib, data, z0, l0, v0, options, stream, lowmem)
-    if lowmem:
-        fbstab_mpc_solve_fused.launches_lowmem += 1
-    else:
-        fbstab_mpc_solve_fused.launches += 1
+    telemetry.count("launch.k2_lowmem" if lowmem else "launch.k2")
     return out
 
-
-fbstab_mpc_solve_fused.launches = 0
-fbstab_mpc_solve_fused.launches_lowmem = 0

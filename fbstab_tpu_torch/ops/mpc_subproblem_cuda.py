@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from fbstab_tpu_torch import telemetry
 from fbstab_tpu_torch.core.variable import Variable, var_norm
 from fbstab_tpu_torch.ops.riccati_cuda import _check_f32, check_batch
 from fbstab_tpu_torch.options import Options
@@ -137,8 +138,8 @@ def mpc_subproblem_fused(prep: SubfusedData, xbar: Variable, itol_prev,
     the inner Newton loop and the dx norm, per lane. xbar is the proximal
     center (B, ...); itol_prev, dxn_prev (B,) float, newton0 (B,) int,
     done (B,) bool. CPU tensors take the plain version; CUDA float32
-    tensors launch K4 in `prep`'s mode, counted in `.launches` (standard)
-    or `.launches_lowmem` (recompute-factors)."""
+    tensors launch K4 in `prep`'s mode, counted as `launch.k4` (standard)
+    or `launch.k4_lowmem` (recompute-factors; telemetry.counters())."""
     args = (prep, xbar, itol_prev, dxn_prev, newton0, done, options)
     if xbar.z.device.type == "cpu":
         return mpc_subproblem_plain(*args)
@@ -148,12 +149,6 @@ def mpc_subproblem_fused(prep: SubfusedData, xbar: Variable, itol_prev,
     lib = load_library()
     stream = torch.cuda.current_stream(xbar.z.device).cuda_stream
     out = launch_subproblem(lib, *args, stream)
-    if prep.lowmem:
-        mpc_subproblem_fused.launches_lowmem += 1
-    else:
-        mpc_subproblem_fused.launches += 1
+    telemetry.count("launch.k4_lowmem" if prep.lowmem else "launch.k4")
     return out
 
-
-mpc_subproblem_fused.launches = 0
-mpc_subproblem_fused.launches_lowmem = 0

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fbstab_tpu_torch import telemetry
+
 # bench.py's probe: the copolymerization reactor's stage size over its
 # horizon (N = 80), one 128-lane tile, 200 applications.
 N1, N_STAGE, LANES, T_DEFAULT = 81, 18, 128, 200
@@ -111,7 +113,7 @@ def cuda_perlane(M, w0, T, scale):
     if w0.device.type == "cpu":
         return perlane_plain(M, w0, T, scale)
     w = _launch(0, M, w0, T, scale)
-    cuda_perlane.launches += 1
+    telemetry.count("launch.mxu_perlane")
     return w
 
 
@@ -120,7 +122,7 @@ def cuda_shared(M, w0, T, scale):
     if w0.device.type == "cpu":
         return shared_plain(M, w0, T, scale)
     w = _launch(1, M, w0, T, scale)
-    cuda_shared.launches += 1
+    telemetry.count("launch.mxu_shared")
     return w
 
 
@@ -131,9 +133,6 @@ def tc_shared(M, w0, T, scale):
     if w0.device.type == "cpu":
         return shared_plain(M, w0, T, scale)
     w = _launch(2, M, w0, T, scale)
-    tc_shared.launches += 1
+    telemetry.count("launch.mxu_tc")
     return w
 
-
-for _k in (cuda_perlane, cuda_shared, tc_shared):
-    _k.launches = 0

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from fbstab_tpu_torch import telemetry
 from fbstab_tpu_torch.ops.pfb import pfb_weights
 
 
@@ -99,8 +100,8 @@ def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
     CPU tensors take the plain version; CUDA float32 tensors launch K1, in
     the recompute-factors mode with `lowmem` (the JAX signature's; the
     solvers' dispatch picks it with models.mpc_qp.riccati_mode). Counts
-    the storing kernel's launches in `.launches`, the recompute-factors
-    kernel's in `.launches_lowmem`."""
+    the storing kernel's launches as `launch.k1`, the recompute-factors
+    kernel's as `launch.k1_lowmem` (telemetry.counters())."""
     if v.device.type == "cpu":
         return riccati_newton_step_plain(data, v, y, vbar, rz, rl, rv,
                                          sigma, alpha)
@@ -111,10 +112,7 @@ def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
     stream = torch.cuda.current_stream(v.device).cuda_stream
     dz, dl = launch_riccati_step(lib, data, v, y, vbar, rz, rl, rv, sigma,
                                  alpha, stream, lowmem)
-    if lowmem:
-        riccati_newton_step_batched.launches_lowmem += 1
-    else:
-        riccati_newton_step_batched.launches += 1
+    telemetry.count("launch.k1_lowmem" if lowmem else "launch.k1")
 
     # Dual recovery (riccati_linear_solver.cc:329-342).
     B = v.shape[0]
@@ -130,6 +128,3 @@ def riccati_newton_step_batched(data, v, y, vbar, rz, rl, rv, sigma,
     dy = -data.d.reshape(B, N1 * nc) - Adz
     return dz, dl, dv, dy
 
-
-riccati_newton_step_batched.launches = 0
-riccati_newton_step_batched.launches_lowmem = 0

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    dense_arrays, dense_mixed_batch, jax_dense_data, require_cuda,
+    dense_arrays, dense_mixed_batch, jax_dense_data, launches, require_cuda,
     torch_dense_data)
 
 from fbstab_tpu_torch.models import dense_qp as td  # noqa: E402
@@ -184,12 +184,12 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     arrays = dense_mixed_batch(2)
     data = torch_dense_data(arrays, torch.float64)
     opts = Options(abs_tol=1e-8)
-    before = dense_solve_cuda.fbstab_dense_solve_fused.launches
+    before = launches("k3")
     x1, c1 = dense_solve_cuda.fbstab_dense_solve_fused(data, *_zeros(arrays),
                                                        opts)
     x2, c2 = dense_solve_cuda.fbstab_dense_solve_plain(data, *_zeros(arrays),
                                                        opts)
-    assert dense_solve_cuda.fbstab_dense_solve_fused.launches == before
+    assert launches("k3") == before
     torch.testing.assert_close(x1.z, x2.z, rtol=0, atol=0)
     assert c1.eflag.tolist() == c2.eflag.tolist()
     assert tuple(x1.l.shape) == (8, 2)
@@ -243,10 +243,10 @@ def test_cuda_kernel_through_the_dispatch(B, n, q, nl):
     guess = tuple(torch.zeros(B, k, dtype=torch.float32, device=dev)
                   for k in (n, nl, q))
     opts = Options.single_precision()
-    before = dense_solve_cuda.fbstab_dense_solve_fused.launches
+    before = launches("k3")
     x, core = td.solve_dense_qp_batch(data, *guess, opts)
     torch.cuda.synchronize()
-    assert dense_solve_cuda.fbstab_dense_solve_fused.launches > before
+    assert launches("k3") > before
     good = (core.eflag == 0).cpu().numpy()
     assert good.mean() >= 0.99
     assert tuple(x.l[0].shape) == (B, nl)
@@ -265,10 +265,10 @@ def test_cuda_facade_float32_default_options_launches_k3():
     data = torch_dense_data(dense_arrays(1, n, q, 0), torch.float32, dev)
     solver = td.FBstabDense(n, 0, q, dtype=torch.float32, device="cuda")
     assert solver.options.display_level < Display.ITER
-    before = dense_solve_cuda.fbstab_dense_solve_fused.launches
+    before = launches("k3")
     x, out = solver.solve(data)
     torch.cuda.synchronize()
-    assert dense_solve_cuda.fbstab_dense_solve_fused.launches > before
+    assert launches("k3") > before
     guess = tuple(torch.zeros(1, k, dtype=torch.float32, device=dev)
                   for k in (n, 0, q))
     xb, cb = td.solve_dense_qp_batch(data, *guess, solver.options)

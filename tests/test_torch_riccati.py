@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    dims, headline_arrays, jax_data, plant_arrays, require_cuda, torch_data)
+    dims, headline_arrays, jax_data, launches, plant_arrays, require_cuda,
+    torch_data)
 
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
 from fbstab_tpu_torch.ops import riccati_cuda  # noqa: E402
@@ -74,13 +75,13 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     v, y, vbar, rz, rl, rv, sigma = (torch.tensor(a, dtype=torch.float32)
                                      for a in _step_inputs(arrays, seed=1))
     td = torch_data(arrays, torch.float32)
-    before = riccati_cuda.riccati_newton_step_batched.launches
+    before = launches("k1")
     got = riccati_cuda.riccati_newton_step_batched(
         td, v, y, vbar, rz, rl, rv, sigma, ALPHA)
     want = tm._fused_step_impl(td, v, y, vbar, rz, rl, rv, sigma, ALPHA)
     for g, w in zip(got, want[:4]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert riccati_cuda.riccati_newton_step_batched.launches == before
+    assert launches("k1") == before
 
 
 class RecordingLib:
@@ -200,10 +201,10 @@ def test_cuda_kernel_matches_plain_version(shape, sigma_per_lane):
             for a in ins[:-1]]
     if sigma_per_lane:
         sig = torch.tensor(sig, dtype=torch.float32, device=dev)
-    before = riccati_cuda.riccati_newton_step_batched.launches
+    before = launches("k1")
     got = tm.mpc_newton_step(td, *args, sig, ALPHA)   # the solvers' dispatch
     torch.cuda.synchronize()
-    assert riccati_cuda.riccati_newton_step_batched.launches == before + 1
+    assert launches("k1") == before + 1
     assert bool(got[4].all())
     want = riccati_cuda.riccati_newton_step_plain(td, *args, sig, ALPHA)
     from fbstab_tpu_torch.ops import _build

@@ -13,8 +13,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    dims, headline_arrays, jax_data, mixed_batch, plant_arrays, require_cuda,
-    torch_data, torch_options)
+    dims, headline_arrays, jax_data, launches, mixed_batch, plant_arrays,
+    require_cuda, torch_data, torch_options)
 
 from fbstab_tpu_torch.models import dense_qp as td_  # noqa: E402
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
@@ -86,12 +86,12 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     td = torch_data(arrays, torch.float64)
     z = lambda n: torch.zeros(8, n, dtype=torch.float64)
     opts = Options(abs_tol=1e-8)
-    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    before = launches("k2")
     x1, c1 = mpc_solve_cuda.fbstab_mpc_solve_fused(td, z(nz), z(nl), z(nv),
                                                    opts)
     x2, c2 = mpc_solve_cuda.fbstab_mpc_solve_plain(td, z(nz), z(nl), z(nv),
                                                    opts)
-    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches == before
+    assert launches("k2") == before
     torch.testing.assert_close(x1.z, x2.z, rtol=0, atol=0)
     assert c1.eflag.tolist() == c2.eflag.tolist()
 
@@ -258,11 +258,11 @@ def test_cuda_kernel_matches_plain_version(case):
     B = arrays["x0"].shape[0]
     z = lambda n: torch.zeros(B, n, dtype=torch.float32, device=dev)
     opts = Options.single_precision()
-    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    before = launches("k2")
     xk, ck = mpc_solve_cuda.fbstab_mpc_solve_fused(data, z(nz), z(nl), z(nv),
                                                    opts)
     torch.cuda.synchronize()
-    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches == before + 1
+    assert launches("k2") == before + 1
     xp, cp = mpc_solve_cuda.fbstab_mpc_solve_plain(data, z(nz), z(nl), z(nv),
                                                    opts)
     assert (ck.eflag == cp.eflag).float().mean().item() >= 0.99
@@ -284,7 +284,6 @@ def test_cuda_batch_diff_backward_is_one_k1_launch():
     require_cuda()
     from fbstab_tpu_torch.diff import (
         make_differentiable_batch_solver, solve_mpc_qp_batch_diff)
-    from fbstab_tpu_torch.ops.riccati_cuda import riccati_newton_step_batched
     from fbstab_tpu_torch.workloads import build_batch, zeros_guess
 
     data = build_batch(64, 30, 8, 3, 6, "cuda")
@@ -295,16 +294,16 @@ def test_cuda_batch_diff_backward_is_one_k1_launch():
         fields = [a.clone().requires_grad_() for a in data]
         z, _, _ = solve(type(data)(*fields), *guess)
         torch.cuda.synchronize()
-        riccati_newton_step_batched.launches = 0
+        before_k1 = launches("k1")
         (0.5 * (z * z).sum()).backward()
         torch.cuda.synchronize()
         if counted:
-            assert riccati_newton_step_batched.launches == 1
+            assert launches("k1") == before_k1 + 1
         return [f.grad for f in fields]
 
-    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    before = launches("k2")
     got = grads(lambda d, *g: solve_mpc_qp_batch_diff(d, *g, opts), True)
-    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches > before
+    assert launches("k2") > before
     plain = make_differentiable_batch_solver(
         tm.MPC_PLAIN_OPS, tm.solve_mpc_qp_batch, opts, 1e-5)
     for g, p in zip(got, grads(plain, False)):
@@ -323,10 +322,10 @@ def test_cuda_facade_float32_default_options_launches_k2():
     data = build_batch(1, 30, 8, 3, 6, "cuda")
     solver = tm.FBstabMpc(30, 8, 3, 6, dtype=torch.float32, device="cuda")
     assert solver.options.display_level < Display.ITER
-    before = mpc_solve_cuda.fbstab_mpc_solve_fused.launches
+    before = launches("k2")
     x, out = solver.solve(data)
     torch.cuda.synchronize()
-    assert mpc_solve_cuda.fbstab_mpc_solve_fused.launches > before
+    assert launches("k2") > before
     xb, cb = tm.solve_mpc_qp_batch(data, *zeros_guess(data), solver.options)
     assert int(out.eflag) == int(cb.eflag[0])
     assert int(out.newton_iters) == int(cb.newton_iters[0])

@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
-    copoly_arrays, dims, jax_data, mixed_batch, require_cuda, torch_data)
+    copoly_arrays, dims, jax_data, launches, mixed_batch, require_cuda,
+    torch_data)
 
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
 from fbstab_tpu_torch.models.mpc_subfused import (  # noqa: E402
@@ -128,10 +129,10 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
     row = torch.ones(B, dtype=torch.float64)
     args = (prep, xbar, row, 10 * row, torch.zeros(B, dtype=torch.int32),
             torch.tensor([False] * (B - 1) + [True]), Options(abs_tol=1e-8))
-    before = k4.mpc_subproblem_fused.launches
+    before = launches("k4")
     got = k4.mpc_subproblem_fused(*args)
     want = k4.mpc_subproblem_plain(*args)
-    assert k4.mpc_subproblem_fused.launches == before
+    assert launches("k4") == before
     for a, b in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     # The lane that entered done: xi = xbar, Eo = 0, counters unchanged.
@@ -197,10 +198,10 @@ def test_cuda_kernel_matches_plain_version():
     data = torch_data(arrays, torch.float32, dev)
     guess = _zeros(arrays, torch.float32, dev)
     opts = Options.single_precision()
-    before = k4.mpc_subproblem_fused.launches
+    before = launches("k4")
     xk, ck = fbstab_mpc_solve_subfused(data, *guess, opts)
     torch.cuda.synchronize()
-    assert k4.mpc_subproblem_fused.launches > before
+    assert launches("k4") > before
     xp, cp = fbstab_mpc_solve_subfused(data, *guess, opts,
                                        subproblem=k4.mpc_subproblem_plain)
     assert (ck.eflag == cp.eflag).float().mean().item() >= 0.99

@@ -188,6 +188,13 @@ def modules_after_import(module: str) -> set:
     return set(out.stdout.split())
 
 
+def launches(kernel: str) -> int:
+    """All-time launches of a kernel ("k1", "k2_lowmem", ...), from the
+    port's counters (fbstab_tpu_torch/telemetry.py)."""
+    from fbstab_tpu_torch import telemetry
+    return telemetry.counters().get(f"launch.{kernel}", 0)
+
+
 def require_cuda():
     """Skips the calling test unless a CUDA device is present (decided at
     run time, never at import or collection)."""
