@@ -45,23 +45,31 @@ fatal on failure:
      replays, `device_ms`) beside the card's launch floor (`floor_ms`),
      and the same source built with plain
      operators (does nvcc contract them?);
- 10. the one-shot MPC path, solve_mpc_qp_batch(...,
+ 10. the MPC refinement's double-float residual (one launch an evaluation)
+     against its plain version, models/refine.py's eager composition, on
+     the copoly cells' shape (N = 80, B = 2048) and cold_b8192's
+     (spacecraft, N = 40, B = 8192): a step's form (per-lane Ruiz-scaled
+     data, the blocks and the loop's norm), y's pair and the four blocks
+     bit for bit, the norm within 1e-6 relative, and the final check's
+     (the expanded plant, batch stride 0, the norm alone), with times,
+     bounds and its design line;
+ 11. the one-shot MPC path, solve_mpc_qp_batch(...,
      Options.single_precision()), at B = 8192, N = 30, nx = 8, nu = 3,
      nc = 6 (the bench.build_batch generator, seed 0), checked in float64
      on the host against the 1e-6 contract, with the kernels' launches;
- 11. the dense path, solve_dense_qp_batch(..., Options.single_precision())
+ 12. the dense path, solve_dense_qp_batch(..., Options.single_precision())
      at B = 4096, n = 32, q = 64, as `bench.py dense` runs it;
- 12. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
+ 13. the adaptive MPC headline, solve_mpc_qp_batch_adaptive_device(...,
      phase1_newton_iters=16, phase2_size=max(B // 8, 128)) at B = 8192,
      as bench.py's headline calls it, with the bench's segments;
- 13. the warmstart sweep: the receding-horizon loop on the headline
+ 14. the warmstart sweep: the receding-horizon loop on the headline
      plant, B = 8192 scenarios for 8 steps (`bench.py warmstart`);
- 14. the plant audit: the four reference plants at B = 128 with perturbed
+ 15. the plant audit: the four reference plants at B = 128 with perturbed
      x0 (the bench's plants_contract_check), the copolymerization reactor
      (N = 80) through tier 2 (K4);
- 15. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
+ 16. the copoly path, solve_mpc_qp_batch(..., Options.single_precision())
      at B = 2048, as `bench.py copoly` runs it, through tier 2;
- 16. the JAX package's kernel envelope (`envelope`): (a) the spacecraft
+ 17. the JAX package's kernel envelope (`envelope`): (a) the spacecraft
      plant at N = 160 (_DIMS_CAP's horizon), B = 8192, through
      solve_mpc_qp_batch(..., Options.single_precision()) with a Newton
      budget of 400 (the plant needs ~250 steps a lane there) on tier 2
@@ -80,29 +88,29 @@ fatal on failure:
      (N, nx, nu, nc) = (10, 24, 8, 8), B = 1024, and (4, 32, 24, 48),
      B = 256, K4 at (17, 32, 24, 48), B = 64, with design lines, and K2 at
      B = 2^22 copoly lanes raising KernelResourceError before any launch;
- 17. the long-horizon phase: the single-instance solve_mpc_qp on the double
+ 18. the long-horizon phase: the single-instance solve_mpc_qp on the double
      integrator in float32 with riccati="scan" and "assoc", in turns, at
      N = 120, 240 and 480 (`bench.py longhorizon`'s N), best of 5 each;
- 18. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
+ 19. the batched assoc phase: solve_mpc_qp_batch(..., riccati="assoc") on
      the copoly batch at B = 256;
- 19. the differentiable layer: the gradient of 0.5 |z|^2 with respect to
+ 20. the differentiable layer: the gradient of 0.5 |z|^2 with respect to
      every data field through solve_mpc_qp_batch_diff at B = 1024 on the
      headline data, float32 under Options.single_precision() with
      sigma_vjp = 1e-5 (forward K2 and the refinement's K1, backward one K1
      launch), held against the same backward on the plain Newton step and
      against a float64 solve and backward on the card's plain path;
- 20. the feedback gain: mpc_feedback_gain on lane 0 of phase 19's
+ 21. the feedback gain: mpc_feedback_gain on lane 0 of phase 20's
      headline data and on the first lane with the most first inputs
      inside their box (a row of K is zero where that input saturates), in
      float32 (its nx tangents one K1 launch), against float64 on the card
      and central differences of the float64 solve;
- 21. the batch facades: FBstabMpcBatch at B = 8192 (a call, a call on the
+ 22. the batch facades: FBstabMpcBatch at B = 8192 (a call, a call on the
      next step's data with the carried shifted warmstart, an adaptive
      call), each at the 1e-6 contract on every lane with BatchStats equal
      to the host's reduction; refine_mpc_batch (three unrolled steps) on
      the raw headline solution; FBstabDenseBatch at B = 4096 on the dense
      mode's data with its FINAL summary through an OutputStream;
- 22. the sparse QP class (CSR products on the card, each Newton step's
+ 23. the sparse QP class (CSR products on the card, each Newton step's
      KKT systems factored on the host by the C LDL'), in float64 under
      Options(abs_tol = 1e-8): `bench.py sparse`'s batch (nz = 400,
      nl = 40, nv = 200, B = 32) through solve_sparse_qp_batch, held to
@@ -117,7 +125,7 @@ fatal on failure:
      sigma_vjp = 1e-6) against the same backward on the CPU, within
      SPARSE_GRAD_TOL of each field's largest gradient. The path launches
      none of the port's kernels, and its launch counts are read (0).
- 23. the batch sharded over torch.distributed (parallel/sharded.py,
+ 24. the batch sharded over torch.distributed (parallel/sharded.py,
      parallel/ragged.py) on a mesh of one rank, a world of one on NCCL, at
      the headline's full width (Options.single_precision()):
      sharded_mpc_solver_fused at B = 8192 against the direct
@@ -167,9 +175,9 @@ from fbstab_tpu_torch.perf_model import (
     dense_step_flops, mpc_solve_bound, nbytes, riccati_flops, solve_flops,
     stage_matvec_flops)
 from fbstab_tpu_torch.workloads import (
-    COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense, card,
-    cuda_ms, dense_f64_residual, dense_zeros, graph_ms, launch_floor_ms,
-    mpc_f64_residual, newton_step_args, timed, zeros_guess)
+    COPOLY, DENSE, HEADLINE, build_batch, build_copoly, build_dense,
+    build_plant, card, cuda_ms, dense_f64_residual, dense_zeros, graph_ms,
+    launch_floor_ms, mpc_f64_residual, newton_step_args, timed, zeros_guess)
 
 K1_TOL = 1e-3      # max |dK - dP| / (1 + max |dP|) per lane, dz and dl
 # Fused solver (K2, K3) against its plain version, both in float32.
@@ -536,12 +544,14 @@ def k3_envelope(device):
 def launch_counter():
     """A reader of the kernels' launches since this call, from the port's
     counters (fbstab_tpu_torch/telemetry.py); the recompute-factors
-    kernels of K1, K2 and K4 are counted apart (`K1_lowmem`, ...)."""
+    kernels of K1, K2 and K4 are counted apart (`K1_lowmem`, ...), the
+    refinement's residual as `RR`."""
     from fbstab_tpu_torch import telemetry
     names = dict(K1="k1", K2="k2", K3="k3", K4="k4", K5="k5",
                  P1_perlane="mxu_perlane", P1_shared="mxu_shared",
                  P1_tc="mxu_tc", P3="df_probe", K1_lowmem="k1_lowmem",
-                 K2_lowmem="k2_lowmem", K4_lowmem="k4_lowmem")
+                 K2_lowmem="k2_lowmem", K4_lowmem="k4_lowmem",
+                 RR="refine_residual")
     start = telemetry.counters()
 
     def since():
@@ -574,6 +584,102 @@ def check_contract(tag, x, core, res64, guess, every_lane):
                                               else ok[good])):
         fail(f"{tag} misses the contract")
     return good
+
+
+# The refinement residual's shapes: the copoly cells' batch and
+# cold_b8192's (plant, N, B).
+RR_SHAPES = (("copoly", "copolymerization_reactor", 80, 2048),
+             ("spacecraft", "spacecraft_relative_motion", 40, 8192))
+
+
+def _df_point(data, seed=0):
+    """A double-float point (zx, zu, l, v) on data's device: hi N(0, 1)
+    (v >= 0), lo within 2^-25 of hi."""
+    from fbstab_tpu_torch.models.mpc_qp import mpc_dims
+    N, nx, nu, nc = mpc_dims(data)
+    B, dev = data.x0.shape[0], data.x0.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def pair(n, nonneg=False):
+        hi = torch.randn(B, N + 1, n, generator=g, device=dev)
+        hi = hi.clamp(min=0.0) if nonneg else hi
+        return hi, hi * (torch.rand(hi.shape, generator=g, device=dev)
+                         - 0.5) * 2.0 ** -24
+    return pair(nx), pair(nu), pair(nx), pair(nc, nonneg=True)
+
+
+def phase_refine_residual(device):
+    """The refinement's residual kernel against its plain version at each
+    RR_SHAPES shape, in a step's form (Ruiz-scaled data, blocks, the
+    norm in original units) and the final check's (the expanded plant,
+    the norm alone, in the data's units): bit-equal blocks, the norm within
+    1e-6 relative, the largest absolute error of the blocks (the step) and
+    of the norm, the kernel's time (20 calls back to back, CUDA events)
+    and its device time alone (a CUDA graph of 20 launches), the plain
+    composition's time, the bound and the design line."""
+    from fbstab_tpu_torch.models.mpc_qp import MpcQPData, mpc_dims
+    from fbstab_tpu_torch.models.refine import mpc_residual_df_plain
+    from fbstab_tpu_torch.models.scaling import (
+        apply_mpc_scaling, ruiz_mpc_scaling)
+    from fbstab_tpu_torch.ops.refine_residual_cuda import refine_residual
+    from fbstab_tpu_torch.options import Options
+    from fbstab_tpu_torch.perf_model import (
+        PEAK_F32_NO_FMA, mpc_data_floats, refine_residual_flops)
+
+    alpha = Options.single_precision().validated().alpha
+    rows = {}
+    for tag, plant, N, B in RR_SHAPES:
+        one = build_plant(plant, N, 1, 0.0, device)
+        raw = MpcQPData(*(a.expand((B,) + a.shape[1:]) for a in one)
+                        )._replace(x0=build_plant(plant, N, B, 0.05,
+                                                  device).x0)
+        scal = ruiz_mpc_scaling(raw)
+        dims = mpc_dims(raw)
+        design = design_line("refine residual", "refine_residual.cu",
+                             "fb_refine_residual_info", dims[1:], per="lane")
+        point = _df_point(raw)
+        pt_floats = sum(t.numel() for p in point for t in p)
+        for form, data, sc, blocks, lanes in (
+                ("step", apply_mpc_scaling(raw, scal), scal, True, B),
+                ("final", raw, None, False, 1)):
+            run = lambda: refine_residual(data, *point, alpha, sc, blocks)
+            got = run()
+            want = mpc_residual_df_plain(data, *point, alpha, sc, blocks)
+            pairs = (list(zip((*got[0], *got[1]), (*want[0], *want[1])))
+                     if blocks else [])
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in pairs)
+            max_abs = max(((g.double() - w.double()).abs().max().item()
+                           for g, w in pairs), default=None)
+            norm_err = (got[2].double() - want[2].double()).abs()
+            norm_abs = norm_err.max().item()
+            rel = (norm_err / want[2].double().abs()).max().item()
+            ms = cuda_ms(run, 20)
+            device_ms = graph_ms(run)
+            plain_ms = cuda_ms(lambda: mpc_residual_df_plain(
+                data, *point, alpha, sc, blocks), 3)
+            out_floats = (sum(t.numel() for t in (*got[0], *got[1]))
+                          if blocks else 0) + B
+            bound_ms, bound_by = bound(
+                B * refine_residual_flops(*dims),
+                4 * (lanes * mpc_data_floats(*dims) + pt_floats + out_floats
+                     + (sum(t.numel() for t in sc) if sc else 0)),
+                peak=PEAK_F32_NO_FMA)
+            print(f"refine residual: {tag} {form} B={B} N={N} blocks "
+                  f"bit-equal {same} (max abs err {max_abs}), norm max abs "
+                  f"err {norm_abs:.3e}, max rel err {rel:.3e} | kernel "
+                  f"{ms:.4f} ms (on the device {device_ms:.4f} ms), plain "
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if not (same and rel <= 1e-6):
+                fail(f"the refinement residual disagrees with its plain "
+                     f"version ({tag} {form})")
+            rows[f"{tag} {form} B={B}"] = dict(
+                max_abs_err=max_abs, norm_abs_err=norm_abs,
+                norm_rel_err=rel, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                design=design)
+    head = dict(rows[f"copoly step B={RR_SHAPES[0][3]}"])
+    return dict(head, library_ms=None, shapes=rows)
 
 
 def phase_main(B, device):
@@ -851,7 +957,8 @@ def phase_copoly(B, device):
           f"{t / 1e3:.3f} s) success_frac {good.mean():.4f} "
           f"residual_f64_max_success {res64[good].max():.3e} "
           f"refine_steps max {int(core.refine_steps.max())} | launches K4 "
-          f"{n['K4']} K1 {n['K1']} | peak device memory {peak:.2f} GiB")
+          f"{n['K4']} K1 {n['K1']} residual {n['RR']} | peak device memory "
+          f"{peak:.2f} GiB")
     if n["K4"] < 1:
         fail("copoly path did not launch K4")
     return n
@@ -1206,7 +1313,7 @@ def envelope_corners(device):
 
 
 def phase_envelope(device, B=8192, B_turns=1024, B_plants=2048):
-    """Phase 16, the JAX package's kernel envelope on the card: (a) the
+    """Phase 17, the JAX package's kernel envelope on the card: (a) the
     spacecraft path at N = 160 on K4, (b) two more tier-2 plants, (c) the
     recompute-factors launches of K1, K2 and K4 bit for bit their storing
     ones, (d) K2 and K4 at the corners of the envelope. Returns the paths'
@@ -2147,6 +2254,7 @@ def main():
     k5 = phase_k5(256, device)
     p1, n_mxu = phase_p1(device)
     p3, n_df = phase_p3(device)
+    rr = phase_refine_residual(device)
     qps, n_oneshot = phase_main(8192, device)
     n_dense = phase_dense_main(4096, device)
     n_adapt = phase_adaptive(8192, device, qps)
@@ -2222,6 +2330,10 @@ def main():
              replaces="scratch/tpu_df_kernel.py:77", launches=n_df["P3"],
              launches_by_path=by_path("P3"), design="one thread per column",
              **p3),
+        dict(name="refine_residual", route="cuda",
+             source="fbstab_tpu_torch/csrc/refine_residual.cu",
+             replaces=None, launches=n_copoly["RR"],
+             launches_by_path=by_path("RR"), **rr),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

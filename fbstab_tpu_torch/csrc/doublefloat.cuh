@@ -1,6 +1,8 @@
 // Double-float error-free transforms in device code: Knuth's two_sum,
 // Dekker's two_prod and a compensated dot product, in the form of
-// fbstab_tpu_torch/ops/doublefloat.py (and scratch/tpu_df_kernel.py).
+// fbstab_tpu_torch/ops/doublefloat.py (and scratch/tpu_df_kernel.py), and
+// the double-float (hi, lo) pair operations of that module, operation for
+// operation (refine_residual.cuh).
 //
 // The transforms are exact only if every operation rounds on its own. The
 // library is built with nvcc's default --fmad=true, which lets the compiler
@@ -27,10 +29,14 @@
 #define FB_DF_ADD(a, b) __fadd_rn((a), (b))
 #define FB_DF_SUB(a, b) __fsub_rn((a), (b))
 #define FB_DF_MUL(a, b) __fmul_rn((a), (b))
+#define FB_DF_DIV(a, b) __fdiv_rn((a), (b))
+#define FB_DF_SQRT(a) __fsqrt_rn(a)
 #else
 #define FB_DF_ADD(a, b) ((a) + (b))
 #define FB_DF_SUB(a, b) ((a) - (b))
 #define FB_DF_MUL(a, b) ((a) * (b))
+#define FB_DF_DIV(a, b) ((a) / (b))
+#define FB_DF_SQRT(a) sqrtf(a)
 #endif
 
 // s + e == a + b exactly, s = fl(a + b).
@@ -66,4 +72,72 @@ FB_DF_FN void df_dot_add(float ph, float pl, float& hi, float& lo) {
   lo = FB_DF_ADD(lo, FB_DF_ADD(e1, pl));
   df_two_sum(hi, lo, hi, e2);
   lo = e2;
+}
+
+// A double-float value hi + lo, and the operations of ops/doublefloat.py on
+// it, each the same sequence of roundings as the PyTorch function of the
+// same name, so the two agree bit for bit (signed zeros and NaNs too).
+struct DF {
+  float hi, lo;
+};
+
+FB_DF_FN DF df_neg(DF x) { return DF{-x.hi, -x.lo}; }
+
+// The nearest single float, hi + lo.
+FB_DF_FN float df_to(DF x) { return FB_DF_ADD(x.hi, x.lo); }
+
+// s + e == a + b exactly, assuming |a| >= |b|.
+FB_DF_FN DF df_fast_two_sum(float a, float b) {
+  const float s = FB_DF_ADD(a, b);
+  return DF{s, FB_DF_SUB(b, FB_DF_SUB(s, a))};
+}
+
+FB_DF_FN DF df_add(DF x, DF y) {
+  float s, e;
+  df_two_sum(x.hi, y.hi, s, e);
+  return df_fast_two_sum(s, FB_DF_ADD(FB_DF_ADD(e, x.lo), y.lo));
+}
+
+// DF * float.
+FB_DF_FN DF df_mul_f(DF x, float a) {
+  float p, e;
+  df_two_prod(x.hi, a, p, e);
+  return df_fast_two_sum(p, FB_DF_ADD(e, FB_DF_MUL(x.lo, a)));
+}
+
+FB_DF_FN DF df_mul(DF x, DF y) {
+  float p, e;
+  df_two_prod(x.hi, y.hi, p, e);
+  const float cross = FB_DF_ADD(FB_DF_MUL(x.hi, y.lo), FB_DF_MUL(x.lo, y.hi));
+  return df_fast_two_sum(p, FB_DF_ADD(e, cross));
+}
+
+// sqrt(DF) by one Newton step from the correctly rounded root of hi.
+FB_DF_FN DF df_sqrt(DF x) {
+  const float s = FB_DF_SQRT(x.hi);
+  float p, e;
+  df_two_prod(s, s, p, e);
+  const DF r = df_add(x, DF{-p, -e});
+  const float corr = s > 0.0f ? FB_DF_DIV(df_to(r), FB_DF_MUL(2.0f, s)) : 0.0f;
+  return df_fast_two_sum(s, corr);
+}
+
+// max(0, DF) and the lexicographic min, as torch.where selects them.
+FB_DF_FN DF df_max0(DF x) {
+  const bool pos = x.hi > 0.0f || (x.hi == 0.0f && x.lo > 0.0f);
+  return pos ? x : DF{0.0f, 0.0f};
+}
+
+FB_DF_FN DF df_min(DF x, DF y) {
+  const bool take_x = x.hi < y.hi || (x.hi == y.hi && x.lo <= y.lo);
+  return take_x ? x : y;
+}
+
+// acc + m * x, one column of df_matvec (one row of df_matvec_T): the
+// product's pair two_prod(m, x.hi) with m first, its error plus m * x.lo
+// rounded twice, added to acc.
+FB_DF_FN DF df_mac(DF acc, float m, DF x) {
+  float p, e;
+  df_two_prod(m, x.hi, p, e);
+  return df_add(acc, DF{p, FB_DF_ADD(e, FB_DF_MUL(m, x.lo))});
 }

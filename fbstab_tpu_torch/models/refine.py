@@ -2,13 +2,15 @@
 (counterpart of `fbstab_tpu/models/refine.py`).
 
 Each step evaluates the penalized-FB KKT residual in double-float
-arithmetic (ops/doublefloat.py), solves the correction in float32 (MPC:
-through the solver's Newton-step dispatch, the CUDA kernel K1 on the card,
-`mpc_qp.mpc_newton_step`; dense: the plain dense step), and carries the
-iterate as a double-float pair, so neither the float32 residual floor nor
-the float32 representation of the point limits the result. The loop exits
-early per chunk of lanes once the original-units residual of every live
-lane is under `Options.refine_target`.
+arithmetic (ops/doublefloat.py; MPC: one dispatch, `mpc_residual_df`, the
+CUDA kernel of ops/refine_residual_cuda.py on the card), solves the
+correction in float32 (MPC: through the solver's Newton-step dispatch,
+the CUDA kernel K1 on the card, `mpc_qp.mpc_newton_step`; dense: the plain
+dense step), and carries the iterate as a double-float pair, so neither
+the float32 residual floor nor the float32 representation of the point
+limits the result. The loop exits early per chunk of lanes once the
+original-units residual of every live lane is under
+`Options.refine_target`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from fbstab_tpu_torch.models import dense_qp as _dense
 from fbstab_tpu_torch.models.dense_qp import DenseQPData
 from fbstab_tpu_torch.models.mpc_qp import (
     MpcQPData,
+    _cuda_f32,
     mpc_dims,
     mpc_newton_step,
 )
@@ -125,21 +128,39 @@ def _mpc_kkt_residual_df(d: MpcQPData, zx, zu, l, v, y, alpha):
     return rzx, rzu, rl, rv
 
 
-def _mpc_pnr_norm_df(d: MpcQPData, zx, zu, l, v, y, alpha):
-    """Penalized natural residual norm from the double-float point; the
-    sum of squares runs over the accurate hi parts."""
-    rzx, rzu, rl, _ = _mpc_kkt_residual_df(d, zx, zu, l, v, y, alpha)
-    nr = df_min(y, v)
-    pen = df_mul(df_max0(y), df_max0(v))
-    rv = df_add(df_mul_f(nr, _const(alpha, d.q)),
-                df_mul_f(pen, _const(1.0 - alpha, d.q)))
-    sq = lambda p: (df_to(p) ** 2).sum((1, 2))
-    return torch.sqrt(sq(rzx) + sq(rzu) + sq(rl) + sq(rv))
-
-
 def _margin(d: MpcQPData, zx, zu):
     """y = b - A z in double-float (full_variable.cc:47-53)."""
     return df_sub(df(-d.d), df_add(df_matvec(d.E, zx), df_matvec(d.L, zu)))
+
+
+def mpc_residual_df_plain(data: MpcQPData, zx, zu, l, v, alpha, scal=None,
+                          blocks: bool = True):
+    """The plain version of mpc_residual_df: the eager composition."""
+    y = _margin(data, zx, zu)
+    kkt = _mpc_kkt_residual_df(data, zx, zu, l, v, y, alpha)
+    res = _mpc_norms(alpha, scal, zx, zu, l, v, y, *kkt[:3])
+    if not blocks:
+        return None, None, res
+    return y, tuple(df_to(b) for b in kkt), res
+
+
+def mpc_residual_df(data: MpcQPData, zx, zu, l, v, alpha, scal=None,
+                    blocks: bool = True):
+    """The MPC refinement's residual at a double-float point: zx, zu, l, v
+    are (hi, lo) pairs of stage-shaped (B, N+1, n) tensors. Returns
+    (y, (rzx, rzu, rl, rv), res): the margin y = b - A z as a pair, the
+    penalized-FB KKT blocks rounded to float32 (the correction's
+    right-hand side) and the penalized natural residual norm (B,)
+    (`_mpc_norms`: in original units when `scal`, the MpcScaling of loop
+    coordinates, is given, else in the data's own). Without `blocks` only
+    res (y and the blocks None).
+    CUDA float32 tensors launch one kernel (ops/refine_residual_cuda.py),
+    bit for bit the plain composition's y and blocks; every other tensor
+    takes the plain version."""
+    if _cuda_f32(zx[0]):
+        from fbstab_tpu_torch.ops.refine_residual_cuda import refine_residual
+        return refine_residual(data, zx, zu, l, v, alpha, scal, blocks)
+    return mpc_residual_df_plain(data, zx, zu, l, v, alpha, scal, blocks)
 
 
 def _pnr_df_at_mpc(data: MpcQPData, sol, alpha):
@@ -156,8 +177,7 @@ def _pnr_df_at_mpc(data: MpcQPData, sol, alpha):
     zu = tree_map(lambda a: a[..., nx:], zst)
     l = tree_map(lambda a: a.reshape(B, N1, nx), as_pair(sol.l))
     v = tree_map(lambda a: a.reshape(B, N1, nc), as_pair(sol.v))
-    y = _margin(data, zx, zu)
-    return _mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha)
+    return mpc_residual_df(data, zx, zu, l, v, alpha, blocks=False)[2]
 
 
 def refine_mpc_batch(data: MpcQPData, x: Variable,
@@ -178,11 +198,10 @@ def refine_mpc_batch(data: MpcQPData, x: Variable,
     zx, zu = df(zs[..., :nx]), df(zs[..., nx:])
     l = df(_stages(x.l, N1, nx))
     v = df(_stages(x.v, N1, nc))
-    y = _margin(data, zx, zu)
-    history = [_mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha)]
+    y, rhs, res = mpc_residual_df(data, zx, zu, l, v, alpha)
+    history = [res]
     for _ in range(steps):
-        rzx, rzu, rl, rv = (df_to(b) for b in _mpc_kkt_residual_df(
-            data, zx, zu, l, v, y, alpha))
+        rzx, rzu, rl, rv = rhs
         vh = df_to(v).reshape(B, -1)
         dz, dl, dv, _, ok = mpc_newton_step(
             data, vh, df_to(y).reshape(B, -1), vh,
@@ -196,8 +215,8 @@ def refine_mpc_batch(data: MpcQPData, x: Variable,
         zu = addf(zu, dzs[..., nx:])
         l = addf(l, _stages(dl, N1, nx))
         v = df_max0(addf(v, _stages(dv, N1, nc)))
-        y = _margin(data, zx, zu)
-        history.append(_mpc_pnr_norm_df(data, zx, zu, l, v, y, alpha))
+        y, rhs, res = mpc_residual_df(data, zx, zu, l, v, alpha)
+        history.append(res)
     zshape = (B, N1 * (nx + nu))
     refined = VariableDF(
         z=(torch.cat([zx[0], zu[0]], -1).reshape(zshape),
@@ -233,8 +252,8 @@ def _mpc_norms(alpha, scal, zx, zu, l, v, y, rzx, rzu, rl):
 
 def _mpc_refine_entry(data: MpcQPData, x: Variable, options: Options,
                       scal=None):
-    """Loop-entry double-float state, KKT blocks and original-units
-    residual for the refinement loop."""
+    """Loop-entry double-float state, float32 KKT blocks and
+    original-units residual for the refinement loop."""
     opts = options.validated()
     N, nx, nu, nc = mpc_dims(data)
     N1 = N + 1
@@ -244,10 +263,9 @@ def _mpc_refine_entry(data: MpcQPData, x: Variable, options: Options,
     zu0 = df(zs[..., nx:])
     l0 = df(_stages(x.l, N1, nx))
     v0 = df(_stages(x.v, N1, nc))
-    y0 = _margin(data, zx0, zu0)
-    blocks0 = _mpc_kkt_residual_df(data, zx0, zu0, l0, v0, y0, opts.alpha)
-    res0 = _mpc_norms(opts.alpha, scal, zx0, zu0, l0, v0, y0, *blocks0[:3])
-    return (zx0, zu0, l0, v0, y0), blocks0, res0
+    y0, rhs0, res0 = mpc_residual_df(data, zx0, zu0, l0, v0, opts.alpha,
+                                     scal)
+    return (zx0, zu0, l0, v0, y0), rhs0, res0
 
 
 # Bounded non-monotone acceptance window: a trial within WALK_BAND of the
@@ -317,12 +335,8 @@ def _refine_mpc_step(data, carry, opts: Options, scal):
     l_p = addf(l, _stages(dl, N1, nx))
     v_p = df_max0(addf(v, _stages(dv, N1, nc)))
     with span("fbstab.refine.residual"):
-        y_p = _margin(data, zx_p, zu_p)
-        blocks_p = _mpc_kkt_residual_df(data, zx_p, zu_p, l_p, v_p, y_p,
-                                        opts.alpha)
-        res_p = _mpc_norms(opts.alpha, scal, zx_p, zu_p, l_p, v_p, y_p,
-                           *blocks_p[:3])
-        rhs_p = tuple(df_to(b) for b in blocks_p)
+        y_p, rhs_p, res_p = mpc_residual_df(data, zx_p, zu_p, l_p, v_p,
+                                            opts.alpha, scal)
     return _walk_update(B, live, ok, res_p, res_best, since, t, sig,
                         (zx_p, zu_p, l_p, v_p, y_p), cur, bst, rhs_p, rhs_c,
                         rhs_b)
@@ -484,9 +498,7 @@ def refine_solution_mpc(data: MpcQPData, x: Variable, core,
                 sdata = apply_mpc_scaling(data, scal)
                 xs = scale_mpc_variable(x, scal)
             with span("fbstab.refine.entry"):
-                state0, blocks0, res0 = _mpc_refine_entry(sdata, xs, opts,
-                                                          scal)
-                rhs0 = tuple(df_to(b) for b in blocks0)
+                state0, rhs0, res0 = _mpc_refine_entry(sdata, xs, opts, scal)
             refined_s, res, steps = _chunked_refine(
                 lambda ck: _refine_mpc_loop(sdata, state0, rhs0, res0, opts,
                                             good, scal, ck), B, rows=rows)
@@ -494,8 +506,7 @@ def refine_solution_mpc(data: MpcQPData, x: Variable, core,
                 refined = unscale_mpc_variable_df(refined_s, scal)
         else:
             with span("fbstab.refine.entry"):
-                state0, blocks0, res0 = _mpc_refine_entry(data, x, opts)
-                rhs0 = tuple(df_to(b) for b in blocks0)
+                state0, rhs0, res0 = _mpc_refine_entry(data, x, opts)
             refined, res, steps = _chunked_refine(
                 lambda ck: _refine_mpc_loop(data, state0, rhs0, res0, opts,
                                             good, None, ck), B, rows=rows)

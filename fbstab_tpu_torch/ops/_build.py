@@ -179,6 +179,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fb_mxu_probe.restype = I
     lib.fb_mxu_probe_info.argtypes = [I, I, I, I, P]
     lib.fb_mxu_probe_info.restype = I
+    from fbstab_tpu_torch.ops.refine_residual_cuda import ResidualArgs
+    lib.fb_refine_residual.argtypes = [I] * 5 + [ResidualArgs, P]
+    lib.fb_refine_residual.restype = I
+    lib.fb_refine_residual_info.argtypes = [I, I, I, P]
+    lib.fb_refine_residual_info.restype = I
     bind_df_probe(lib)
     return lib
 
@@ -194,7 +199,8 @@ def kernel_info(fn, *dims, fields=INFO_FIELDS) -> dict:
     """A kernel's launch shape at these dims, from its C info function
     (`lib.fb_mpc_solve_info`, `lib.fb_mpc_subproblem_info` or
     `lib.fb_riccati_info` at (N, nx, nu, nc, lowmem),
-    `lib.fb_dense_solve_info` at (n, q, nl), `lib.fb_combine_info` at n;
+    `lib.fb_dense_solve_info` at (n, q, nl), `lib.fb_combine_info` at n,
+    `lib.fb_refine_residual_info` at (nx, nu, nc);
     `lib.fb_mxu_probe_info` at
     (form, n, N1, B) with fields=MXU_INFO_FIELDS)."""
     info = (ctypes.c_int * len(fields))()

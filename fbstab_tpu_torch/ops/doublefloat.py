@@ -6,8 +6,13 @@ for float32), kept exact by Knuth's two_sum and Dekker's two_prod. The
 transforms are exact only if every operation rounds on its own: eager
 PyTorch runs each operator as its own kernel, so nothing contracts
 `a*b + c` into a fused multiply-add or re-associates a sum. Do not wrap
-this code in `torch.compile` or move it into a fused kernel, where
-contraction would break two_prod.
+this code in `torch.compile`, whose generated kernels may contract or
+re-associate, which would break two_prod. A kernel written by hand may
+carry it only with every operation its own rounding:
+csrc/doublefloat.cuh writes each as a rounding intrinsic (`__fadd_rn`,
+`__fsub_rn`, `__fmul_rn`), which nvcc never contracts, and the MPC
+refinement's residual kernel on it (ops/refine_residual_cuda.py) is bit
+for bit this module's arithmetic.
 
 A DF value is a plain (hi, lo) tuple of equal-shape tensors.
 """

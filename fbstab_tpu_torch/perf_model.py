@@ -73,6 +73,26 @@ def mpc_residual_flops(N, nx, nu, nc):
     return (N + 1) * (2 * ns * ns + 6 * nx * ns + 2 * nc * ns + 10 * nc)
 
 
+# Rounding float32 operations of one double-float multiply-add
+# (doublefloat.cuh's df_mac): Dekker's two_prod 17, the error term's product
+# and sum 2, the pair sum df_add 11. None of them contracts into an FMA, so
+# each takes an instruction slot of its own: the card's float32 rate is
+# then half its FMA-counted peak.
+DF_MAC_OPS = 30
+PEAK_F32_NO_FMA = PEAK_F32_FLOPS / 2
+
+
+def refine_residual_flops(N, nx, nu, nc):
+    """Rounding operations of one evaluation of the MPC refinement's
+    double-float residual for one instance (ops/refine_residual_cuda.py):
+    DF_MAC_OPS for each multiply-add of the margin (E zx + L zu), the KKT
+    blocks (Q zx + S' zu + A' l + E' v, S zx + R zu + B' l + L' v) and rl
+    (A zx + B zu); the pair epilogues, a few percent more, are not
+    counted. Bound it against PEAK_F32_NO_FMA."""
+    ns = nx + nu
+    return DF_MAC_OPS * ns * ((N + 1) * (ns + 2 * nc) + 2 * N * nx)
+
+
 def dense_step_flops(n, q, nl):
     f = n * n * q + n ** 3 / 3 + 4 * n * q + 4 * n * n
     if nl > 0:

@@ -18,7 +18,9 @@ stall guard, the linesearch and the exit checks, which float32 knife edges
 hide on the card (chip_smoke.py bounds the float32 Newton counts there).
 The double-float transforms of P3 (csrc/doublefloat.cuh) are replayed in
 float32: the replay is built with -ffp-contract=off, so the host compiler
-contracts nothing, and they must be exact."""
+contracts nothing, and they must be exact. So is the MPC refinement's
+residual (csrc/refine_residual.cuh), whose margin and KKT blocks must be
+bit for bit the eager composition's."""
 
 import contextlib
 import ctypes
@@ -34,7 +36,8 @@ torch.set_num_threads(1)
 
 from torch_parity import (  # noqa: E402
     copoly_arrays, dense_arrays, dense_mixed_batch, dims, headline_arrays,
-    mixed_batch, plant_arrays, span_arrays, torch_data, torch_dense_data)
+    mixed_batch, plant_arrays, residual_case, span_arrays, torch_data,
+    torch_dense_data)
 
 from fbstab_tpu_torch.models import mpc_qp as tm  # noqa: E402
 from fbstab_tpu_torch.models.mpc_subfused import (  # noqa: E402
@@ -92,6 +95,8 @@ def lib(tmp_path_factory):
     for fn in (lib.fb_replay_set_team, lib.fb_replay_set_stages):
         fn.argtypes = [I]
         fn.restype = None
+    from fbstab_tpu_torch.ops.refine_residual_cuda import ResidualArgs
+    lib.fb_refine_residual.argtypes = [I] * 5 + [ResidualArgs, P]
     return lib
 
 
@@ -630,6 +635,53 @@ def test_replayed_df_transforms_are_exact_and_bit_equal_to_plain(lib):
     assert v["dot_rel_err"] < 1e-3 * v["f32_dot_rel_err"]
     for got, want in zip(outs, df_probe_plain(a, b)):
         assert torch.equal(got, want)
+
+
+# (plant, the data's form, host team, staging): the spacecraft's 6-state
+# stages take the kernel's team of 8, the reactor's 18-state stages a warp;
+# the unscaled forms take the norm in the data's own units (the expanded
+# plant, batch stride 0, is the final check's norm),
+# the index_select'ed sub-batch a partial chunk's step; on the dense data
+# the order of every sum shows in the margin's lo part.
+RESIDUAL_CASES = {
+    "spacecraft-scaled": ("spacecraft", "scaled", 8, True),
+    "spacecraft-unscaled-point": ("spacecraft", "plain", 1, True),
+    "spacecraft-expanded": ("spacecraft", "expanded", 8, True),
+    "spacecraft-subbatch": ("spacecraft", "subbatch", 8, True),
+    "copoly-scaled": ("copoly", "scaled", 32, True),
+    "copoly-unscaled-in-place": ("copoly", "plain", 32, False),
+    "copoly-expanded": ("copoly", "expanded", 32, True),
+    "copoly-subbatch": ("copoly", "subbatch", 32, True),
+    "dense-data": ("dense", "plain", 32, True),
+}
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_CASES))
+def test_replayed_refine_residual_is_bit_equal_to_plain(lib, case):
+    """The refinement's residual (csrc/refine_residual.cuh) replayed in
+    float32 against models/refine.py's eager composition on the CPU: the
+    margin's pair and the four float32 KKT blocks bit for bit, the norm
+    within 1e-6 relative (its sum of squares runs in another order); the
+    norm alone (no blocks) the same norm. The launch goes through the
+    wrapper's checks on the replay library."""
+    from fbstab_tpu_torch.models.refine import mpc_residual_df_plain
+    from fbstab_tpu_torch.ops.refine_residual_cuda import (
+        launch_refine_residual)
+    plant, form, T, stages = RESIDUAL_CASES[case]
+    data, point, scal = residual_case(plant, form, 6)
+    for blocks in (True, False):
+        want = mpc_residual_df_plain(data, *point, ALPHA, scal, blocks)
+        with on_team(lib, T, stages):
+            got = launch_refine_residual(lib, data, *point, ALPHA, scal,
+                                         blocks, stream=None)
+        if blocks:
+            for name, g, w in zip(("y", "y_lo", "rzx", "rzu", "rl", "rv"),
+                                  (*got[0], *got[1]), (*want[0], *want[1])):
+                assert torch.equal(g.view(torch.int32),
+                                   w.view(torch.int32)), name
+        else:
+            assert got[0] is None and got[1] is None
+        torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
 
 
 # Host teams for P1: up to 32 threads; the kernels' teams of 3, 6 and 9

@@ -1,6 +1,7 @@
 // The device code of the PyTorch port's CUDA kernels
 // (fbstab_tpu_torch/csrc/*.cuh) compiled as host C++ in float64 (the
-// double-float transforms of P3 in float32): one loop
+// double-float transforms of P3 and the refinement's residual in float32):
+// one loop
 // iteration per instance, each on the team of one, behind the C interface
 // of the CUDA library with double in place of float, in the kernels'
 // layouts (K3, K5 batch-last; K1, K2, K4 instance-major, with each
@@ -24,10 +25,12 @@
 #include <type_traits>
 #include <vector>
 
-// The double-float transforms of P3 stay in float32: their exactness is
-// what is replayed. The host compiler sees doublefloat.cuh's plain
-// operators, so the replay is built with -ffp-contract=off.
+// The double-float transforms of P3 and the refinement's residual stay in
+// float32: their exactness is what is replayed. The host compiler sees
+// doublefloat.cuh's plain operators, so the replay is built with
+// -ffp-contract=off.
 #include "doublefloat.cuh"
+#include "refine_residual.cuh"
 
 extern "C" int fb_df_probe(int R, int C, const float* a, const float* b,
                            float* s, float* e, float* p, float* pe,
@@ -471,3 +474,22 @@ int fb_mxu_probe(int form, int N1, int n, int B, int T, float scale,
 }
 
 }  // extern "C"
+
+// The refinement's residual (refine_residual.cuh), in float32 as the
+// kernel computes it, lane by lane on the team of fb_replay_set_team
+// threads (staging unless fb_replay_set_stages(0); the team of one reads
+// in place), behind the library's C interface; `float` is float again here.
+#pragma push_macro("float")
+#undef float
+extern "C" int fb_refine_residual(int N, int nx, int nu, int nc, int B,
+                                  RrArgs a, void* stream) {
+  (void)stream;
+  std::vector<float> stage(rr_stage_floats(nx, nu, nc));
+  std::vector<double> part(4 * 32);
+  for (long long b = 0; b < B; ++b)
+    on_team([&](const auto& tm) {
+      rr_lane(tm, N, nx, nu, nc, a, b, stage.data(), part.data());
+    });
+  return 0;
+}
+#pragma pop_macro("float")

@@ -46,6 +46,88 @@ def copoly_arrays(B, N, seed=0):
                         x0s=0.02 * rng.standard_normal((B, 18)))
 
 
+def residual_point(data, seed):
+    """A double-float point (zx, zu, l, v) for the MPC refinement's
+    residual, stage-shaped pairs on data's device: zx and zu views of one
+    stacked z as the refinement's entry takes them, every seventh stage
+    exactly zero, v >= 0 with zeros, lo parts ~2^-25 of hi."""
+    import torch
+    from fbstab_tpu_torch.models.mpc_qp import mpc_dims
+    N, nx, nu, nc = mpc_dims(data)
+    B, N1 = data.x0.shape[0], N + 1
+    rng = np.random.default_rng(seed)
+
+    def pair(n, nonneg=False):
+        hi = rng.standard_normal((B, N1, n)).astype(np.float32)
+        if nonneg:
+            hi = np.maximum(hi, 0.0)
+        hi[:, ::7] = 0.0
+        lo = hi * rng.uniform(-1, 1, hi.shape).astype(np.float32) * 2.0 ** -25
+        return (torch.from_numpy(hi).to(data.x0.device),
+                torch.from_numpy(lo).to(data.x0.device))
+
+    z = pair(nx + nu)
+    return (tuple(a[..., :nx] for a in z), tuple(a[..., nx:] for a in z),
+            pair(nx), pair(nc, nonneg=True))
+
+
+def dense_mpc_arrays(B, N=6, nx=18, nu=5, nc=10, seed=0):
+    """MPC data with every stage block dense and Gaussian, each entry
+    scaled by 2^k for k uniform in [-8, 8), as numpy arrays: not a plant,
+    a test of arithmetic order."""
+    rng = np.random.default_rng(seed)
+
+    def g(*shape):
+        return rng.standard_normal(shape) * np.exp2(
+            rng.integers(-8, 8, shape))
+    N1 = N + 1
+    return dict(Q=g(B, N1, nx, nx), R=g(B, N1, nu, nu), S=g(B, N1, nu, nx),
+                q=g(B, N1, nx), r=g(B, N1, nu), A=g(B, N, nx, nx),
+                B=g(B, N, nx, nu), c=g(B, N, nx), E=g(B, N1, nc, nx),
+                L=g(B, N1, nc, nu), d=g(B, N1, nc), x0=g(B, nx))
+
+
+def residual_case(plant, form, B, device="cpu"):
+    """(data, point, scaling or None) for the refinement's residual in
+    float32: the spacecraft at N = 40 or the copolymerization reactor at
+    N = 80 (the benchmark's configurations), or dense_mpc_arrays ("dense":
+    every product rounds in double-float, so the order of each sum shows in
+    the margin's lo part), the data as built ("plain"),
+    per-lane Ruiz-scaled with its scaling ("scaled"), one instance expanded
+    over the batch, batch stride 0 ("expanded"), that plant scaled by its
+    own Ruiz scaling expanded over the batch ("shared", the closed loop's
+    fleet), or an index_select'ed sub-batch of the scaled data, lanes B-1,
+    B/2-1 and 0 ("subbatch")."""
+    import torch
+    from fbstab_tpu_torch.models.mpc_qp import MpcQPData
+    from fbstab_tpu_torch.models.scaling import (apply_mpc_scaling,
+                                                 ruiz_mpc_scaling)
+    arrays = {"spacecraft": lambda: plant_arrays(
+        "spacecraft_relative_motion", 40, B),
+              "copoly": lambda: copoly_arrays(B, 80),
+              "dense": lambda: dense_mpc_arrays(B)}[plant]()
+    data = torch_data(arrays, torch.float32, device)
+    point, scal = residual_point(data, 3), None
+    if form in ("expanded", "shared"):
+        data = MpcQPData(*(a[:1].expand((B,) + a.shape[1:]) for a in data)
+                         )._replace(x0=data.x0)
+    if form == "shared":
+        one = ruiz_mpc_scaling(MpcQPData(*(a[:1] for a in data)))
+        scal = type(one)(*(a.expand((B,) + a.shape[1:]) for a in one))
+        data = apply_mpc_scaling(data, scal)
+    elif form in ("scaled", "subbatch"):
+        scal = ruiz_mpc_scaling(data)
+        data = apply_mpc_scaling(data, scal)
+    if form == "subbatch":
+        idx = torch.tensor([B - 1, B // 2 - 1, 0], device=device)
+        take = lambda tree: type(tree)(*(a.index_select(0, idx)
+                                         for a in tree))
+        data, scal = take(data), take(scal)
+        point = tuple(tuple(a.index_select(0, idx) for a in p)
+                      for p in point)
+    return data, point, scal
+
+
 def spd_bl(rng, S, n, B, shift):
     """S x B random SPD n x n matrices (M M' / n + shift I), stage-stacked
     with the batch last: (S, n, n, B), contiguous."""
